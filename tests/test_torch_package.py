@@ -1,0 +1,146 @@
+"""The port package on its own: imports, generators, relation helpers and
+the kernel wrapper's dispatch (which must never run the plain version for
+a CUDA tensor, nor launch anything for a CPU one)."""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from htm_hashjoin_tpu_torch.data.generators import (local_shuffled_keys,
+                                                    sorted_keys)
+from htm_hashjoin_tpu_torch.ops import _build
+from htm_hashjoin_tpu_torch.ops import fused_sort_count as fsc
+from htm_hashjoin_tpu_torch.relation import keys_from_numpy, tiles_from_numpy
+
+TILE = 2048
+
+
+def test_import_pulls_in_no_jax_and_builds_nothing():
+    code = (
+        "import sys\n"
+        "import htm_hashjoin_tpu_torch, htm_hashjoin_tpu_torch.bench\n"
+        "from htm_hashjoin_tpu_torch.ops import _build\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m.startswith('htm_hashjoin_tpu.') or m == 'htm_hashjoin_tpu']\n"
+        "print(bad, _build.build.cache_info().currsize,"
+        " _build.load_library.cache_info().currsize)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, timeout=120)
+    assert out.stdout.split() == ["[]", "0", "0"]
+
+
+@pytest.mark.parametrize("n,window", [(1000, 16), (4096, 1), (5000, 64),
+                                      (1 << 14, 512)])
+def test_local_shuffle_invariants(n, window):
+    keys = local_shuffled_keys(n, window, 7)
+    assert keys.dtype == torch.int32 and keys.shape == (n,)
+    a = keys.numpy()
+    np.testing.assert_array_equal(np.sort(a), np.arange(1, n + 1))
+    assert np.abs(a - np.arange(1, n + 1)).max() <= window
+    assert torch.equal(keys, local_shuffled_keys(n, window, 7))
+    if window > 1:
+        assert not torch.equal(keys, local_shuffled_keys(n, window, 8))
+
+
+def test_sorted_keys():
+    assert sorted_keys(5).tolist() == [1, 2, 3, 4, 5]
+    assert sorted_keys(5).dtype == torch.int32
+
+
+def test_tiles_from_numpy_round_trips():
+    rng = np.random.default_rng(0)
+    arr2d = rng.integers(-2**31, 2**31 - 1, (16, 128)).astype(np.int32)
+    flat = tiles_from_numpy(arr2d)
+    assert flat.dtype == torch.int32 and flat.is_contiguous()
+    np.testing.assert_array_equal(flat.view(-1, 128).numpy(), arr2d)
+    with pytest.raises(ValueError):
+        tiles_from_numpy(arr2d.reshape(32, 64))
+    with pytest.raises(ValueError):
+        keys_from_numpy(arr2d)
+    with pytest.raises(ValueError):
+        keys_from_numpy(np.array([1, 2**31], np.int64))
+
+
+def k1_args(device="cpu", n_tiles=2):
+    r = torch.arange(n_tiles * TILE, 0, -1, dtype=torch.int32, device=device)
+    s = torch.arange(1, (n_tiles + 17) * TILE + 1, dtype=torch.int32,
+                     device=device)
+    zeros = torch.zeros(n_tiles, dtype=torch.int32, device=device)
+    return r, s, zeros, zeros.clone()
+
+
+def test_plain_path_does_not_count_launches():
+    before = fsc.LAUNCHES
+    out = fsc.fused_sort_count(*k1_args(), tile=TILE, method="bitonic")
+    assert fsc.LAUNCHES == before
+    assert out[0].dtype == torch.int32 and out[1].shape == (2, 3)
+    assert out[2].dtype == torch.int64 and out[3].dtype == torch.int32
+
+
+def test_cuda_tensor_without_cuda_raises_and_never_runs_plain(monkeypatch):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(fsc, "fused_sort_count_ref", plain)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        args = k1_args("cuda")
+    before = fsc.LAUNCHES
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fsc.fused_sort_count(*args, tile=TILE, method="blocks", passes=16)
+    assert fsc.LAUNCHES == before
+
+
+def test_other_device_raises():
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fsc.fused_sort_count(*k1_args("meta"), tile=TILE, method="bitonic")
+
+
+@pytest.mark.parametrize("bad", ["dtype", "2d", "row_off", "tile", "ragged",
+                                 "method", "passes", "short_s", "devices"])
+def test_bad_arguments_raise(bad):
+    r, s, row_off, rows_needed = k1_args()
+    kw = dict(tile=TILE, method="oddeven", passes=4)
+    if bad == "dtype":
+        r = r.to(torch.int64)
+    elif bad == "2d":
+        r = r.view(-1, 128)
+    elif bad == "row_off":
+        row_off = row_off[:1]
+    elif bad == "tile":
+        kw["tile"] = 3000
+    elif bad == "ragged":
+        r = r[:-128]
+    elif bad == "method":
+        kw["method"] = "radix"
+    elif bad == "passes":
+        kw["passes"] = 0
+    elif bad == "short_s":
+        s = s[:TILE]
+    elif bad == "devices":
+        s = s.to("meta")
+    with pytest.raises(ValueError):
+        fsc.fused_sort_count(r, s, row_off, rows_needed, **kw)
+
+
+def test_band_past_probe_end_raises_on_cpu():
+    r, s, row_off, rows_needed = k1_args()
+    row_off[1] = s.numel() // 128 - 8
+    with pytest.raises(ValueError, match="prepare_probe_side"):
+        fsc.fused_sort_count(r, s, row_off, rows_needed, tile=TILE,
+                             method="bitonic")
+
+
+def test_library_name_follows_the_sources(tmp_path, monkeypatch):
+    src = tmp_path / "k.cu"
+    src.write_text("// one\n")
+    monkeypatch.setattr(_build, "SRC_DIR", tmp_path)
+    first = _build.library_path()
+    assert first.parent == _build.BUILD_DIR
+    src.write_text("// two\n")
+    assert _build.library_path() != first
