@@ -2,20 +2,23 @@
 
 A port of ``htm_hashjoin_tpu`` (JAX/Pallas on a TPU) to PyTorch on an
 NVIDIA H100, slice by slice; the JAX package stays the reference every
-piece is tested against.  This slice covers the headline build+probe join:
-a locality-shuffled build side probed by a sorted probe side, through one
-hand-written CUDA kernel (``csrc/fused_sort_count.cu``) on CUDA tensors and
-its plain torch version on CPU tensors.
+piece is tested against.  It covers the banded engine: the build-only
+pipeline and every build+probe plan (fused narrow, wide band, sort-first,
+presorted, unsorted probe side) with its abort -> retry, repair and replan
+paths, through five hand-written CUDA kernels (``csrc/*.cu``: K1 fused sort
++ count, K2 tile sort, K3 global sort, K4 general count, K5 narrow count)
+on CUDA tensors and their plain torch versions on CPU tensors.
 
 Importing the package imports torch only: no jax, no kernel build (the
-kernel is compiled by nvcc at its first launch).
+kernels are compiled by nvcc at their first launch).
 """
 
 from .version import __version__
 from .data import generators
-from .joins import (BandedJoinOutcome, banded_join_pipelined,
-                    enqueue_banded_join, prepare_probe_side)
+from .joins import (BandedBuild, BandedJoinOutcome, banded_build_pipelined,
+                    banded_join_pipelined, banded_probe, enqueue_banded_join,
+                    enqueue_full_join, prepare_probe_side)
 
-__all__ = ["__version__", "generators", "BandedJoinOutcome",
-           "banded_join_pipelined", "enqueue_banded_join",
-           "prepare_probe_side"]
+__all__ = ["__version__", "generators", "BandedBuild", "BandedJoinOutcome",
+           "banded_build_pipelined", "banded_join_pipelined", "banded_probe",
+           "enqueue_banded_join", "enqueue_full_join", "prepare_probe_side"]

@@ -1,5 +1,11 @@
-from .banded_backend import (BandedJoinOutcome, banded_join_pipelined,
-                             enqueue_banded_join, prepare_probe_side)
+from .banded_backend import (BandedBuild, BandedJoinOutcome,
+                             banded_build_from_sorted, banded_build_pipelined,
+                             banded_join_pipelined, banded_probe,
+                             enqueue_banded_build, enqueue_banded_join,
+                             enqueue_full_join, prepare_probe_side,
+                             sort_probe_side, tagged_count)
 
-__all__ = ["BandedJoinOutcome", "banded_join_pipelined",
-           "enqueue_banded_join", "prepare_probe_side"]
+__all__ = ["BandedBuild", "BandedJoinOutcome", "banded_build_from_sorted",
+           "banded_build_pipelined", "banded_join_pipelined", "banded_probe",
+           "enqueue_banded_build", "enqueue_banded_join", "enqueue_full_join",
+           "prepare_probe_side", "sort_probe_side", "tagged_count"]

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` of the package into one shared
-library with a plain C interface, which ``ctypes`` loads.  The build runs at
-first use, never at import, into ``htm_hashjoin_tpu_torch/build/`` (listed
-in ``.gitignore``); the library's name carries a hash of the sources and
-flags, so an edited source builds anew.
+``nvcc`` compiles every ``csrc/*.cu`` of the package, one process per
+source, all started together, and links the objects into one shared library
+with a plain C interface, which ``ctypes`` loads.  The build runs at first
+use, never at import, into ``htm_hashjoin_tpu_torch/build/`` (listed in
+``.gitignore``); the library's name carries a hash of the sources, the
+headers they include (``csrc/*.cuh``) and the flags, so an edited source or
+header builds anew.
 """
 
 from __future__ import annotations
@@ -21,8 +23,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 
 def _nvcc() -> str:
@@ -44,33 +47,51 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    """Where the library for the current sources, headers and flags lives."""
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for src in sorted([*_sources(), *SRC_DIR.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libhtm_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands at once; raise on the first that fails.  Returns
+    their standard error, concatenated."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate() for proc in procs]
+    for cmd, proc, (out, err) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code {proc.returncode}"
+                               f" on {cmd[-1]}:\n{out}{err}")
+    return "".join(err for _, err in outs)
+
+
 @functools.cache
 def build() -> tuple[Path, float, str]:
     """Compile the sources if their library is missing.  Returns (library
-    path, seconds spent compiling, nvcc's report: registers and shared
-    memory per kernel, or "" when the library was already built)."""
+    path, seconds spent compiling and linking, nvcc's report: registers and
+    shared memory per kernel, or "" when the library was already built)."""
     out = library_path()
     if out.exists():
         return out, 0.0, ""
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {res.returncode}:\n"
-                           f"{res.stdout}{res.stderr}")
+    try:
+        report = _run_all([[nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj),
+                            str(src)] for src, obj in zip(_sources(), objs)])
+        tmp = out.with_name(f"{tag}.tmp")
+        _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)   # atomic: a concurrent build never loads half a file
-    return out, seconds, res.stderr
+    return out, time.perf_counter() - t0, report
 
 
 @functools.cache
@@ -78,9 +99,17 @@ def load_library() -> ctypes.CDLL:
     """The loaded kernel library, with every entry point's signature set."""
     lib = ctypes.CDLL(str(build()[0]))
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.htm_fused_sort_count.argtypes = [p, p, i64, p, p, p, p, p, p,
-                                         i, i, i, i, p]
-    lib.htm_fused_sort_count.restype = i
+    signatures = {
+        "htm_fused_sort_count": [p, p, i64, p, p, p, p, p, p, i, i, i, i, p],
+        "htm_sort_tiles": [p, p, p, i, i, i, i, p],
+        "htm_global_sort_levels": [p, i64, i, p],
+        "htm_banded_count": [p, p, i64, p, p, p, p, i, i, p],
+        "htm_banded_count_narrow": [p, p, i64, p, p, p, p, i, i, p],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = i
     lib.htm_cuda_error_string.argtypes = [i]
     lib.htm_cuda_error_string.restype = ctypes.c_char_p
     return lib

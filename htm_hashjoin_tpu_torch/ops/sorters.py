@@ -1,4 +1,4 @@
-"""Plain torch forms of the three per-tile sorters of the banded join.
+"""Plain torch forms of the per-tile sorters of the banded join.
 
 Each works on an ``(F, T)`` view (one row per tile, T a power of two) and
 returns a new tensor.  They are the references the CUDA kernel is held to,
@@ -25,6 +25,15 @@ def block_size(window: int, tile: int) -> int:
 def bitonic_sort_tiles(v: torch.Tensor) -> torch.Tensor:
     """Full ascending sort of every tile (``linops.bitonic_sort_keys``)."""
     return torch.sort(v, dim=1).values
+
+
+def bitonic_alt_sort_tiles(v: torch.Tensor) -> torch.Tensor:
+    """Full sort of every tile, ascending on even tiles and descending on odd
+    ones (``linops.bitonic_sort_keys`` with ``final_asc`` = tile parity: the
+    global sort's phase A, which leaves every tile pair bitonic)."""
+    v = torch.sort(v, dim=1).values
+    return torch.where((torch.arange(v.shape[0], device=v.device) % 2 == 1)
+                       [:, None], v.flip(1), v)
 
 
 def shifted_block_sort_tiles(v: torch.Tensor, window: int) -> torch.Tensor:
@@ -60,10 +69,16 @@ def odd_even_passes_tiles(v: torch.Tensor, passes: int) -> torch.Tensor:
     return v
 
 
+# The kernels' method codes (csrc/banded_common.cuh: Method).
+METHODS = {"bitonic": 0, "blocks": 1, "oddeven": 2, "bitonic_alt": 3}
+
+
 def sort_tiles(v: torch.Tensor, method: str, passes: int) -> torch.Tensor:
-    """Dispatch on the kernel's ``method`` names."""
+    """Dispatch on the kernels' ``method`` names."""
     if method == "bitonic":
         return bitonic_sort_tiles(v)
+    if method == "bitonic_alt":
+        return bitonic_alt_sort_tiles(v)
     if method == "blocks":
         return shifted_block_sort_tiles(v, passes)
     if method == "oddeven":

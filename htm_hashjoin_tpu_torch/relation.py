@@ -3,7 +3,7 @@
 The JAX package keeps tiled relations as ``(rows, 128)`` arrays (``r2d``,
 ``s2d``); the port keeps the same bytes flat.  These helpers carry a JAX
 package state (as numpy) across, so that a test can feed the port exactly
-the bytes the JAX kernels saw.
+the bytes the JAX kernels saw, or probe the build artifact JAX made.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from .constants import LANES
+from .joins.banded_backend import BandedBuild
 
 
 def keys_from_numpy(arr, device=None) -> torch.Tensor:
@@ -31,3 +32,15 @@ def tiles_from_numpy(arr2d, device=None) -> torch.Tensor:
     if a.ndim != 2 or a.shape[1] != LANES:
         raise ValueError(f"expected a (rows, {LANES}) array, got shape {a.shape}")
     return keys_from_numpy(a.reshape(-1), device)
+
+
+def banded_build_from_numpy(build, device=None) -> BandedBuild:
+    """The port's ``BandedBuild`` holding the same artifact as a JAX package
+    ``BandedBuild`` (or any object with its fields: ``sorted2d``, ``mins``,
+    ``maxs`` as arrays numpy can read, and ``tile``, ``n``, ``violations``,
+    ``resorted``)."""
+    return BandedBuild(tiles_from_numpy(np.asarray(build.sorted2d), device),
+                       keys_from_numpy(np.asarray(build.mins), device),
+                       keys_from_numpy(np.asarray(build.maxs), device),
+                       int(build.tile), int(build.n), int(build.violations),
+                       bool(build.resorted))

@@ -1,9 +1,10 @@
-"""The port's banded join against the JAX package's (Pallas kernels in
-interpret mode) on the same numpy inputs, at tile 2048 and N = 2^14.
+"""The port's banded join on the fused narrow plan against the JAX
+package's (Pallas kernels in interpret mode) on the same numpy inputs, at
+tile 2048 and N = 2^14.
 
 Every field of the outcome must agree exactly: matches, violations,
 overflow (flagged) tiles, both key sums and whether the bitonic retry ran.
-Plans outside the ported slice must raise NotImplementedError.
+The other plans are held to JAX in tests/test_torch_plans.py.
 """
 
 import numpy as np
@@ -140,27 +141,6 @@ def test_fully_padded_tile_gets_an_empty_band():
 @pytest.mark.parametrize("tile", [2048, 8192])
 def test_sort_method_matches_jax(window, tile):
     assert tpb._sort_method(window, tile) == jpb._sort_method(window, tile)
-
-
-@pytest.mark.parametrize("kw", [dict(presort=True), dict(presorted=True),
-                                dict(sort_s=True), dict(narrow=False),
-                                dict(locality_window=None)])
-def test_out_of_slice_plans_raise(kw):
-    kw = {"locality_window": 16, **kw}
-    keys = torch.arange(1, N + 1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tpb.banded_join_pipelined(keys, keys, tile=TILE, **kw)
-
-
-def test_flagged_tiles_raise_instead_of_repairing():
-    """A 6000-copy run in S widens tile 0's band past the narrow count's
-    reach: JAX repairs it with K3/K4, which the port does not have yet."""
-    s = np.sort(np.concatenate([np.arange(1, N + 1, dtype=np.int32),
-                                np.full(6000, 100, np.int32)]))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tpb.banded_join_pipelined(torch.from_numpy(local_shuffle(N, 8, 7)),
-                                  torch.from_numpy(s), tile=TILE,
-                                  locality_window=8)
 
 
 def test_short_probe_padding_raises():

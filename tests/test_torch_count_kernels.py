@@ -1,0 +1,127 @@
+"""The plain K4 (general count) and K5 (narrow count) against the JAX
+package's banded_count and banded_count_narrow (Pallas, interpret mode) on
+the same sorted tiles, band offsets and chunk counts, tile 2048.
+
+The JAX kernels return one (8, 128) grid of partial sums for all tiles, so
+each tile is also run alone (its own one-tile call) to compare counts per
+tile.  Tolerance 0: integer outputs.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from htm_hashjoin_tpu.joins import pallas_backend as jpb
+from htm_hashjoin_tpu.ops.pallas import join_kernels as jk
+from htm_hashjoin_tpu_torch.joins import banded_backend as tpb
+from htm_hashjoin_tpu_torch.ops.banded_count import banded_count
+from htm_hashjoin_tpu_torch.ops.banded_count_narrow import banded_count_narrow
+from htm_hashjoin_tpu_torch.ops.fused_sort_count import fused_sort_count_ref
+from htm_hashjoin_tpu_torch.relation import keys_from_numpy, tiles_from_numpy
+
+TILE = 2048
+RPT = TILE // 128
+N = 1 << 14
+
+
+def sorted_case(name):
+    """(tile-sorted r2d, sorted skeys) as numpy arrays."""
+    rng = np.random.default_rng(9)
+    if name == "unique":
+        r = np.arange(1, N + 1, dtype=np.int32)
+        return jpb.to_tiles_2d(jnp.asarray(r[:N - 300]), TILE), r
+    if name == "duplicates":
+        r = np.sort(rng.integers(1, N // 5, N).astype(np.int32))
+        s = np.sort(rng.integers(1, N // 5, N + 500).astype(np.int32))
+        return jpb.to_tiles_2d(jnp.asarray(r), TILE), s
+    if name == "heavy_s_run":   # one S key 6000 times: a wide band
+        r = np.arange(1, N + 1, dtype=np.int32)
+        s = np.sort(np.concatenate([r, np.full(6000, 2100, np.int32)]))
+        return jpb.to_tiles_2d(jnp.asarray(r), TILE), s
+    raise KeyError(name)
+
+
+def geometry(r2d, skeys):
+    mins, maxs, _ = jk.tile_stats(r2d, RPT)
+    off, end = jpb._slice_offsets(jnp.asarray(skeys), mins, maxs)
+    row_off = (off // 128).astype(jnp.int32)
+    rows_needed = jnp.maximum((end + 127) // 128 - row_off, 0).astype(jnp.int32)
+    return row_off, rows_needed
+
+
+def port(*arrays):
+    """numpy / jax arrays -> the port's flat int32 tensors."""
+    return [tiles_from_numpy(np.asarray(a)) if np.asarray(a).ndim == 2
+            else keys_from_numpy(np.asarray(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("name", ["unique", "duplicates", "heavy_s_run"])
+def test_plain_k4_matches_jax_kernel(name):
+    r2d, skeys = sorted_case(name)
+    s2d = jpb.prepare_probe_side(jnp.asarray(skeys), TILE)
+    row_off, rows_needed = geometry(r2d, skeys)
+    n_chunks = np.asarray((rows_needed + RPT - 1) // RPT).astype(np.int32)
+    n_chunks[1] = 0                                # 0 skips a tile
+    n_chunks = jnp.asarray(n_chunks)
+    want = jk.banded_count(r2d, s2d, row_off, n_chunks, tile=TILE,
+                           max_chunks=16, interpret=True)
+    counts, status = banded_count(*port(r2d, s2d, row_off, n_chunks),
+                                  tile=TILE)
+    assert int(counts.sum()) == int(np.asarray(want, np.int64).sum())
+    assert not status.any() and counts[1] == 0
+    for t in range(counts.numel()):
+        one = jk.banded_count(r2d[t * RPT:(t + 1) * RPT], s2d,
+                              row_off[t:t + 1], n_chunks[t:t + 1], tile=TILE,
+                              max_chunks=16, interpret=True)
+        assert int(counts[t]) == int(np.asarray(one, np.int64).sum()), t
+    if name == "heavy_s_run":
+        assert int(n_chunks.max()) > 1
+
+
+@pytest.mark.parametrize("name", ["unique", "duplicates", "heavy_s_run"])
+def test_plain_k5_matches_jax_kernel_and_k1(name):
+    r2d, skeys = sorted_case(name)
+    s2d = jpb.prepare_probe_side(jnp.asarray(skeys), TILE)
+    row_off, rows_needed = geometry(r2d, skeys)
+    want, want_flags = jk.banded_count_narrow(r2d, s2d, row_off, rows_needed,
+                                              tile=TILE, interpret=True)
+    args = port(r2d, s2d, row_off, rows_needed)
+    counts, flags = banded_count_narrow(*args, tile=TILE)
+    np.testing.assert_array_equal(flags.numpy(), np.asarray(want_flags)[:, 0])
+    assert int(counts.sum()) == int(np.asarray(want, np.int64).sum())
+    for t in range(counts.numel()):
+        one, _ = jk.banded_count_narrow(r2d[t * RPT:(t + 1) * RPT], s2d,
+                                        row_off[t:t + 1],
+                                        rows_needed[t:t + 1], tile=TILE,
+                                        interpret=True)
+        assert int(counts[t]) == int(np.asarray(one, np.int64).sum()), t
+    # K1 on the same (already sorted) tiles gives K5's counts and flags
+    _, _, k1_counts, k1_flags = fused_sort_count_ref(*args, tile=TILE,
+                                                     method="bitonic")
+    assert torch.equal(k1_counts, counts) and torch.equal(k1_flags, flags)
+    if name == "heavy_s_run":
+        assert flags[1] == 1 and counts[1] == 0
+
+
+def test_k4_chunk_past_the_padding_raises_on_cpu():
+    keys = torch.arange(1, 2 * TILE + 1, dtype=torch.int32)
+    s_pad = tpb.prepare_probe_side(keys, TILE)
+    n_chunks = torch.tensor([1, s_pad.numel() // TILE + 1], dtype=torch.int32)
+    with pytest.raises(ValueError, match="prepare_probe_side"):
+        banded_count(keys, s_pad, torch.zeros(2, dtype=torch.int32), n_chunks,
+                     tile=TILE)
+
+
+def test_plain_k4_heavy_hitter_counts_past_32_bits():
+    """2^16 copies of one key on each side: 2^32 pairs, exact in int64 (the
+    int32 accumulator of the JAX kernel needed a certificate here)."""
+    n = 1 << 16
+    keys = torch.full((n,), 5, dtype=torch.int32)
+    s_pad = tpb.prepare_probe_side(keys, TILE)
+    mins = torch.full((n // TILE,), 5, dtype=torch.int32)
+    row_off, rows_needed = tpb._rows(*tpb._slice_offsets(keys, mins, mins))
+    counts, _ = banded_count(keys, s_pad, row_off,
+                             tpb._n_chunks(rows_needed, TILE), tile=TILE)
+    assert int(counts.sum()) == n * n == 1 << 32
+    assert counts.dtype == torch.int64

@@ -1,6 +1,7 @@
-"""The port package on its own: imports, generators, relation helpers and
-the kernel wrapper's dispatch (which must never run the plain version for
-a CUDA tensor, nor launch anything for a CPU one)."""
+"""The port package on its own: imports, generators, relation helpers, the
+kernel build's naming and the kernel wrappers' dispatch (which must never
+run the plain version for a CUDA tensor, nor launch anything for a CPU
+one)."""
 
 import subprocess
 import sys
@@ -12,7 +13,11 @@ import torch
 from htm_hashjoin_tpu_torch.data.generators import (local_shuffled_keys,
                                                     sorted_keys)
 from htm_hashjoin_tpu_torch.ops import _build
+from htm_hashjoin_tpu_torch.ops import banded_count as bc
+from htm_hashjoin_tpu_torch.ops import banded_count_narrow as bcn
 from htm_hashjoin_tpu_torch.ops import fused_sort_count as fsc
+from htm_hashjoin_tpu_torch.ops import global_sort as gs
+from htm_hashjoin_tpu_torch.ops import sort_tiles as st
 from htm_hashjoin_tpu_torch.relation import keys_from_numpy, tiles_from_numpy
 
 TILE = 2048
@@ -139,8 +144,65 @@ def test_band_past_probe_end_raises_on_cpu():
 def test_library_name_follows_the_sources(tmp_path, monkeypatch):
     src = tmp_path / "k.cu"
     src.write_text("// one\n")
+    header = tmp_path / "shared.cuh"
+    header.write_text("// one\n")
     monkeypatch.setattr(_build, "SRC_DIR", tmp_path)
     first = _build.library_path()
     assert first.parent == _build.BUILD_DIR
     src.write_text("// two\n")
-    assert _build.library_path() != first
+    second = _build.library_path()
+    assert second != first
+    header.write_text("// two\n")           # a header alone changes the name
+    assert _build.library_path() not in (first, second)
+
+
+def other_kernel_calls(device="cpu"):
+    """(module, plain-version name, call) of K2-K5 on 2 tiles."""
+    keys = torch.arange(2 * TILE, dtype=torch.int32, device=device)
+    s = torch.arange((2 + 17) * TILE, dtype=torch.int32, device=device)
+    zeros = torch.zeros(2, dtype=torch.int32, device=device)
+    return [
+        (st, "sort_tiles_ref",
+         lambda: st.sort_tiles(keys, tile=TILE, method="bitonic_alt")),
+        (gs, "global_sort_ref",
+         lambda: gs.global_sort_tiles(keys, tile=TILE)),
+        (bc, "banded_count_ref",
+         lambda: bc.banded_count(keys, s, zeros, zeros + 1, tile=TILE)),
+        (bcn, "narrow_count_ref",
+         lambda: bcn.banded_count_narrow(keys, s, zeros, zeros, tile=TILE)),
+    ]
+
+
+@pytest.mark.parametrize("k", range(4))
+def test_other_kernels_plain_path_counts_no_launch(k):
+    mod, _, call = other_kernel_calls()[k]
+    before = (mod.LAUNCHES, st.LAUNCHES)
+    out = call()
+    assert (mod.LAUNCHES, st.LAUNCHES) == before
+    first = out[0] if isinstance(out, tuple) else out
+    assert first.device.type == "cpu"
+
+
+@pytest.mark.parametrize("k", range(4))
+def test_other_kernels_cuda_without_cuda_raise_and_never_run_plain(
+        k, monkeypatch):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def plain(*a, **kw):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        mod, ref, call = other_kernel_calls("cuda")[k]
+    monkeypatch.setattr(mod, ref, plain)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    before = mod.LAUNCHES
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert mod.LAUNCHES == before
+
+
+@pytest.mark.parametrize("k", range(4))
+def test_other_kernels_other_device_raises(k):
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        other_kernel_calls("meta")[k][2]()
