@@ -21,7 +21,19 @@ Phases, one line each:
                 kernel's launches (counts set to 0 just before each path, read
                 just after) and the wall time;
   7. kernel times - K2-K5 at their paths' shapes against their plain
-                versions (held equal there too).
+                versions (held equal there too);
+  8. radix      - K6 against its plain version on cases of a few tiles
+                (fanout 128 at tile 8192, empty runs, runs of many rows,
+                three passes), exactly; the multipass radix join at 2^27
+                (pk R x sorted S, 14 bits in two passes of 7) through
+                radix_join, exact, with two K6 launches and its peak device
+                memory, then build-only; K6 against its plain version at the
+                2^27 pass-1 and pass-2 shapes, timed;
+  9. cli        - the CLI in-process (cli.main) at --rSize 2^27, one line per
+                path the planner chooses: adaptive -> htm (K1), adaptive ->
+                radix on the engine's sort plan and on the sort route (held
+                to a torch.unique count), mc PRO (PK x FK), htm --switchSniff
+                -> radix; each line's counts, sums, path and kernels checked.
 Then a JSON line of kernels and, last, {"ok": true, "device": {...}}.
 Any failure raises: the script exits non-zero and prints no result.  With no
 CUDA device it exits 1 at once.  Every 2^27 input is freed before the next
@@ -32,6 +44,8 @@ is made.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -40,16 +54,22 @@ import time
 import numpy as np
 import torch
 
-from htm_hashjoin_tpu_torch import bench
-from htm_hashjoin_tpu_torch.data.generators import (local_shuffled_keys,
-                                                    shuffled_keys,
+from htm_hashjoin_tpu_torch import bench, cli
+from htm_hashjoin_tpu_torch.config import Algo, Distribution, JoinConfig
+from htm_hashjoin_tpu_torch.constants import MAXI32
+from htm_hashjoin_tpu_torch.data.generators import (build_relations,
+                                                    local_shuffled_keys,
+                                                    pk_keys, shuffled_keys,
                                                     sorted_keys, zipf_keys)
 from htm_hashjoin_tpu_torch.joins import banded_backend as bb
+from htm_hashjoin_tpu_torch.joins.radix import radix_join
 from htm_hashjoin_tpu_torch.ops import _build
 from htm_hashjoin_tpu_torch.ops import banded_count as bc
 from htm_hashjoin_tpu_torch.ops import banded_count_narrow as bcn
 from htm_hashjoin_tpu_torch.ops import fused_sort_count as fsc
 from htm_hashjoin_tpu_torch.ops import global_sort as gs
+from htm_hashjoin_tpu_torch.ops import radix_kernels as rk
+from htm_hashjoin_tpu_torch.ops import scatter_tiles as sct
 from htm_hashjoin_tpu_torch.ops import sort_tiles as st
 
 TILE = 8192
@@ -57,13 +77,16 @@ LOG2_N = 27
 WINDOW = 16
 CSRC = "htm_hashjoin_tpu_torch/csrc/"
 JOIN_KERNELS = "htm_hashjoin_tpu/ops/pallas/join_kernels.py"
+RADIX_KERNELS = "htm_hashjoin_tpu/ops/pallas/radix_kernels.py"
 # name -> (wrapper module, CUDA source, the TPU kernel's pallas_call)
 KERNELS = {
-    "fused_sort_count": (fsc, "fused_sort_count.cu", 1068),
-    "sort_tiles": (st, "sort_tiles.cu", 238),
-    "global_sort_tiles": (gs, "global_sort.cu", 429),
-    "banded_count": (bc, "banded_count.cu", 1240),
-    "banded_count_narrow": (bcn, "banded_count_narrow.cu", 889),
+    "fused_sort_count": (fsc, "fused_sort_count.cu", f"{JOIN_KERNELS}:1068"),
+    "sort_tiles": (st, "sort_tiles.cu", f"{JOIN_KERNELS}:238"),
+    "global_sort_tiles": (gs, "global_sort.cu", f"{JOIN_KERNELS}:429"),
+    "banded_count": (bc, "banded_count.cu", f"{JOIN_KERNELS}:1240"),
+    "banded_count_narrow": (bcn, "banded_count_narrow.cu",
+                            f"{JOIN_KERNELS}:889"),
+    "scatter_tiles": (sct, "scatter_tiles.cu", f"{RADIX_KERNELS}:348"),
 }
 
 
@@ -136,8 +159,9 @@ def _err(got, want) -> int:
     """Largest absolute difference of two integer tensors (0 if equal)."""
     _require(got.shape == want.shape, f"shape {tuple(got.shape)} != "
              f"{tuple(want.shape)}")
-    d = (got.long() - want.long()).abs()
-    return int(d.max()) if d.numel() else 0
+    if torch.equal(got, want):
+        return 0
+    return int((got.long() - want.long()).abs().max())
 
 
 def _duplicates(n, dev, seed):
@@ -251,9 +275,11 @@ def _run_path(name, fn, expect, card) -> dict:
     return counts
 
 
-def _time_pair(name, what, kernel_fn, plain_fn, errs, times, card, reps=10):
+def _time_pair(name, what, kernel_fn, plain_fn, errs, times, card, reps=10,
+               keep=True):
     """Hold a kernel equal to its plain version at a path's shape, then time
-    both with CUDA events; the first shape timed is the one reported."""
+    both with CUDA events; the first shape timed is the one reported
+    (``keep=False`` prints a shape's times without reporting them)."""
     got, want = kernel_fn(), plain_fn()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
@@ -263,7 +289,8 @@ def _time_pair(name, what, kernel_fn, plain_fn, errs, times, card, reps=10):
     del got, want
     ms = _events_ms(kernel_fn, reps)
     plain_ms = _events_ms(plain_fn, 3)
-    times.setdefault(name, (ms, plain_ms))
+    if keep:
+        times.setdefault(name, (ms, plain_ms))
     print(f"kernel times: {name} at {what}: {ms:.4f} ms, plain {plain_ms:.4f}"
           f" ms, max_abs_err={err} [{card}]")
 
@@ -416,6 +443,198 @@ def _paths(dev, card, errs, times) -> dict:
     return total
 
 
+def _scatter_inputs(keys, tile, fanout, shift, parent=None, n_parents=1,
+                    align=False):
+    """One radix pass's K6 inputs: the keys tile-sorted by K2, and the
+    pass's plan (tile-digit bounds, then destination rows)."""
+    sorted_flat, _ = st.sort_tiles(rk._to_tiles(keys, tile), tile=tile,
+                                   method="bitonic")
+    bounds = rk.tile_digit_bounds(sorted_flat, fanout=fanout, shift=shift,
+                                  tile=tile)
+    if parent is None:
+        parent = torch.zeros(bounds.shape[0], dtype=torch.int32,
+                             device=keys.device)
+    plan = rk.scatter_plan(bounds, parent, fanout=fanout,
+                           rows_per_tile=tile // 128, align_tiles=align,
+                           n_parents=n_parents)
+    return sorted_flat, plan
+
+
+def _check_scatter(dev, errs) -> None:
+    """K6 against its plain version on cases of a few tiles, exactly: fanout
+    128 at tile 8192, an alphabet of three keys (empty runs, runs of many
+    rows), tile-aligned duplicate regions, and a three-pass partition held
+    pass for pass to the same partition on the CPU."""
+    n = 5 * TILE - 300
+    cases = [("permutation, fanout 128", pk_keys(n, 1, dev), 128, 8, False),
+             ("alphabet 1..3, fanout 4", _duplicates(n, dev, 8) % 3 + 1, 4,
+              0, False),
+             ("duplicates, fanout 128, aligned", _duplicates(n, dev, 9), 128,
+              4, True)]
+    for case, keys, fanout, shift, align in cases:
+        sorted_flat, plan = _scatter_inputs(keys, TILE, fanout, shift,
+                                            align=align)
+        args = (sorted_flat, plan.a_elem, plan.dest_row)
+        kw = dict(tile=TILE, out_rows=plan.out_rows)
+        got = sct.scatter_tiles(*args, **kw)
+        err = _err(got, sct.scatter_tiles_ref(*args, **kw))
+        vals = got[got != MAXI32]
+        _require(torch.equal(torch.sort(vals).values,
+                             torch.sort(keys).values),
+                 f"K6 lost keys on {case}")
+        runs = (plan.hist > 0).sum(1)
+        print(f"kernel: K6 on {case}: {plan.a_elem.shape[0]} tiles, "
+              f"{plan.out_rows} rows out, runs per tile {int(runs.min())}.."
+              f"{int(runs.max())}, longest run {int(plan.hist.max())} keys, "
+              f"max_abs_err={err}")
+        _require(not err, f"K6 differs from its plain version on {case}")
+        errs["scatter_tiles"] = max(errs["scatter_tiles"], err)
+    keys = shuffled_keys(6 * TILE + 77, 2, dev)
+    kw = dict(radix_bits=12, passes=3, key_bits=keys.numel().bit_length(),
+              tile=TILE)
+    before = sct.LAUNCHES
+    got = rk.multipass_radix_partition(keys, **kw)
+    launches = sct.LAUNCHES - before
+    want = rk.multipass_radix_partition(keys.cpu(), **kw)
+    err = max([_err(got.partitioned.cpu(), want.partitioned)] +
+              [_err(g.cpu(), w) for g, w in zip(got.pass_hists,
+                                                 want.pass_hists)])
+    print(f"kernel: K6 in a three-pass partition ({[p.bits for p in got.pass_plans]}"
+          f" bits): {launches} launches, max_abs_err={err} (against the "
+          f"same partition on the CPU)")
+    _require(not err and launches == 3, "the three-pass partition differs")
+    errs["scatter_tiles"] = max(errs["scatter_tiles"], err)
+
+
+def _radix(dev, card, errs, times) -> dict:
+    """K6 on few tiles, the multipass radix join at 2^27 (and build-only),
+    then K6 against its plain version at the join's two pass shapes."""
+    _check_scatter(dev, errs)
+    n = 1 << LOG2_N
+    gauss = n * (n + 1) // 2
+    total = dict.fromkeys(KERNELS, 0)
+    cfg = JoinConfig(algo=Algo.RADIX, r_size=n, data_distr=Distribution.PK,
+                     radix_bits=14, radix_passes=2,
+                     radix_strategy="multipass", seed=11)
+    r, s = build_relations(cfg, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = {}
+    counts = _run_path(
+        "multipass radix pk x sorted, 14 bits in 2 passes (radix_join)",
+        lambda: res.setdefault("m", radix_join(r, s, cfg)).to_json_line(),
+        {"scatter_tiles": 2, "sort_tiles": 3, "banded_count": 1}, card)
+    peak = torch.cuda.max_memory_allocated()
+    m = res["m"]
+    print(f"path: multipass radix peak device memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB, relations included) [{card}]")
+    _require(m.totalMatches == n and m.inputSum == m.outputSum == gauss
+             and m.extra["passBits"] == [7, 7]
+             and m.extra["backend"] == "pallas_multipass_radix"
+             and counts["scatter_tiles"] == 2, f"multipass radix: {m}")
+    for k, v in counts.items():
+        total[k] += v
+    res = {}
+    counts = _run_path(
+        "multipass radix build-only (radix_join, no probe side)",
+        lambda: res.setdefault("m", radix_join(r, None, cfg)).to_json_line(),
+        {"scatter_tiles": 2, "sort_tiles": 3}, card)
+    _require(res["m"].inputSum == res["m"].outputSum == gauss
+             and res["m"].totalMatches is None, f"build-only: {res['m']}")
+    for k, v in counts.items():
+        total[k] += v
+    del s
+
+    # K6 at the pass shapes of that join: pass 1 over the 2^27 keys,
+    # pass 2 over pass 1's tile-aligned output with 128 parents
+    passes = rk.plan_passes(n.bit_length(), 14, 2)   # _max_key_bound: n
+    sorted_flat, plan = _scatter_inputs(r.keys, TILE, 128, passes[0].shift,
+                                        align=True)
+    del r
+    args = (sorted_flat, plan.a_elem, plan.dest_row)
+    kw = dict(tile=TILE, out_rows=plan.out_rows)
+    _time_pair("scatter_tiles", f"2^{LOG2_N} pass 1 ({plan.a_elem.shape[0]} "
+               f"tiles -> {plan.out_rows} rows)",
+               lambda: sct.scatter_tiles(*args, **kw),
+               lambda: sct.scatter_tiles_ref(*args, **kw), errs, times, card)
+    out1 = sct.scatter_tiles(*args, **kw)
+    parent = rk._parents_from_regions(plan.region_rows,
+                                      n_tiles=out1.numel() // TILE,
+                                      rows_per_tile=TILE // 128)
+    del args, sorted_flat, plan
+    sorted_flat, plan = _scatter_inputs(out1, TILE, 128, passes[1].shift,
+                                        parent=parent, n_parents=128)
+    del out1
+    args = (sorted_flat, plan.a_elem, plan.dest_row)
+    kw = dict(tile=TILE, out_rows=plan.out_rows)
+    _time_pair("scatter_tiles", f"2^{LOG2_N} pass 2 ({plan.a_elem.shape[0]} "
+               f"tiles -> {plan.out_rows} rows)",
+               lambda: sct.scatter_tiles(*args, **kw),
+               lambda: sct.scatter_tiles_ref(*args, **kw), errs, times, card,
+               reps=5, keep=False)
+    del args, sorted_flat, plan
+    torch.cuda.empty_cache()
+    return total
+
+
+def _cli_line(argv, dev) -> dict:
+    """Run the CLI in-process on ``dev``; return its JSON line."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _require(cli.main(argv, device=dev) == 0, f"cli {argv} failed")
+    print(f"cli: {' '.join(argv)}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def _cli_paths(dev, card) -> dict:
+    """The CLI at --rSize 2^27, one run per path the planner chooses, each
+    line checked: counts, conservation, the path taken, its kernels."""
+    n = 1 << LOG2_N
+    total = dict.fromkeys(KERNELS, 0)
+    runs = [
+        (["--algo", "adaptive", "--dataDistr", "local_shuffle"],
+         {"fused_sort_count": 1}, "htm"),
+        (["--algo", "adaptive", "--dataDistr", "uniform", "--distinctKeys",
+          str(n // 2)], {"global_sort_tiles": 1}, "radix"),
+        (["--algo", "adaptive", "--dataDistr", "random"],
+         {"global_sort_tiles": 1}, "radix"),
+        (["--algo", "PRO", "-r", str(n), "-s", str(n)],
+         {"global_sort_tiles": 2}, None),
+        (["--algo", "htm", "--switchSniff", "--dataDistr", "zipf"],
+         {"global_sort_tiles": 2}, None),
+    ]
+    for argv, expect, path in runs:
+        if "-r" not in argv:
+            argv = argv + ["--rSize", str(n)]
+        res = {}
+        counts = _run_path(f"cli {' '.join(argv)}",
+                           lambda: res.setdefault("d", _cli_line(argv, dev)),
+                           expect, card)
+        d = res["d"]
+        for k, v in counts.items():
+            total[k] += v
+        ok = d["inputSum"] == d["outputSum"] and d.get("chosenPath") == path
+        if "random" in argv:
+            # the sort route: S is a copy of R; an independent count of
+            # sum over keys of multiplicity^2
+            cfg, _ = cli.parse_args(argv)
+            r, _ = build_relations(cfg, dev)
+            _, mult = torch.unique(r.keys, return_counts=True)
+            want = int((mult.long() ** 2).sum())
+            del r, mult
+            ok = ok and "backend" not in d and d["totalMatches"] == want
+        elif "uniform" in argv:
+            ok = ok and d["backend"] == "pallas_banded" \
+                and d["totalMatches"] == n
+        elif "--switchSniff" in argv:
+            ok = ok and d["switchedToRadix"] is True and d["totalMatches"] == n
+        else:
+            ok = ok and d["totalMatches"] == n
+        _require(ok, f"cli {argv}: {d}")
+        torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -544,14 +763,18 @@ def main() -> int:
     # 6-7. every other path at 2^27, then K2-K5 at their paths' shapes
     counts = _paths(dev, card, errs, times)
     counts["fused_sort_count"] += main_counts["fused_sort_count"]
+    # 8-9. K6 and the multipass radix join, then the CLI's paths
+    for more in (_radix(dev, card, errs, times), _cli_paths(dev, card)):
+        for k, v in more.items():
+            counts[k] += v
     for name in KERNELS:
         _require(counts[name] > 0, f"no path launched {name}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": CSRC + src,
-        "replaces": f"{JOIN_KERNELS}:{line}", "launches": counts[name],
+        "replaces": replaces, "launches": counts[name],
         "max_abs_err": errs[name], "ms": times[name][0],
         "plain_ms": times[name][1]}
-        for name, (_, src, line) in KERNELS.items()]}))
+        for name, (_, src, replaces) in KERNELS.items()]}))
     print(f"device: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,6 +35,7 @@ from ..ops.banded_count import banded_count
 from ..ops.banded_count_narrow import banded_count_narrow
 from ..ops.fused_sort_count import fused_sort_count
 from ..ops.global_sort import global_sort_tiles
+from ..ops.probe import segmented_count_tagged
 from ..ops.sort_tiles import sort_tiles, tile_stats
 
 # The JAX package's 65536-key tile is 256 KB of int32, more than a thread
@@ -183,21 +184,6 @@ def banded_build_from_sorted(sorted_keys: torch.Tensor, *,
 # Exact counts for the repair paths
 # ---------------------------------------------------------------------------
 
-def _segmented_count_tagged(comp_sorted: torch.Tensor) -> torch.Tensor:
-    """Multiset match count from a SORTED key*2+tag composite stream (tag 0
-    build, 1 probe): per probe element 2k+1, the number of build elements
-    2k, which sort just before it.  The JAX package takes the same count
-    from a cumsum and a segment-start cummax; torch's cummax (it also
-    returns indices) took 98 ms for 2^25 keys on an H100, two binary
-    searches of the sorted stream take a few.  MAXI32 padding is odd and
-    counts no build element (keys are < 2^29)."""
-    first = torch.searchsorted(comp_sorted, comp_sorted, side="left")
-    build_first = torch.searchsorted(comp_sorted, comp_sorted - 1,
-                                     side="left")
-    return _sum_i64(torch.where((comp_sorted & 1) == 1, first - build_first,
-                                0))
-
-
 def tagged_count(r_keys: torch.Tensor, skeys: torch.Tensor, *,
                  tile: int) -> torch.Tensor:
     """Skew-oblivious multiset join count (int64 device scalar): one K3
@@ -207,7 +193,7 @@ def tagged_count(r_keys: torch.Tensor, skeys: torch.Tensor, *,
     comp_r = torch.where(r_keys == MAXI32, MAXI32, r_keys * 2)
     comp = torch.cat([comp_r.reshape(-1), skeys.reshape(-1) * 2 + 1])
     comp_sorted = global_sort_tiles(to_tiles_pow2(comp, tile), tile=tile)
-    return _segmented_count_tagged(comp_sorted[:comp.numel()])
+    return segmented_count_tagged(comp_sorted[:comp.numel()])
 
 
 def _check_status(status_max: int) -> None:

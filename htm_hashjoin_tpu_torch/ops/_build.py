@@ -105,6 +105,7 @@ def load_library() -> ctypes.CDLL:
         "htm_global_sort_levels": [p, i64, i, p],
         "htm_banded_count": [p, p, i64, p, p, p, p, i, i, p],
         "htm_banded_count_narrow": [p, p, i64, p, p, p, p, i, i, p],
+        "htm_scatter_tiles": [p, p, p, p, i64, i, i, i, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

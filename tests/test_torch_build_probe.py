@@ -12,6 +12,7 @@ from htm_hashjoin_tpu.joins import pallas_backend as jpb
 from htm_hashjoin_tpu.ops.pallas import join_kernels as jk
 from htm_hashjoin_tpu_torch.constants import MAXI32
 from htm_hashjoin_tpu_torch.joins import banded_backend as tpb
+from htm_hashjoin_tpu_torch.ops.probe import segmented_count_tagged
 from htm_hashjoin_tpu_torch.relation import banded_build_from_numpy
 
 TILE = 2048
@@ -197,5 +198,5 @@ def test_segmented_count_matches_jax():
     s = rng.integers(1, 300, 7000).astype(np.int32) * 2 + 1
     comp = np.sort(np.concatenate([r, s, np.full(100, MAXI32, np.int32)]))
     want = int(jpb._segmented_count_tagged(jnp.asarray(comp)))
-    got = tpb._segmented_count_tagged(torch.from_numpy(comp))
+    got = segmented_count_tagged(torch.from_numpy(comp))
     assert int(got) == want == numpy_matches(r // 2, s // 2)

@@ -1,6 +1,7 @@
 """The CUDA kernels (K1 fused sort + count, K2 tile sort, K3 global sort,
-K4 general count, K5 narrow count) against their plain torch versions on
-the card, exactly, and the join plans that run them.
+K4 general count, K5 narrow count, K6 radix scatter) against their plain
+torch versions on the card, exactly, the join plans that run them, the
+multipass radix join and one CLI run per path the planner chooses.
 
 Needs a CUDA device and nvcc; elsewhere every test skips.  The file imports
 no jax, so it runs where jax is absent:
@@ -10,17 +11,26 @@ no jax, so it runs where jax is absent:
 (``--noconftest``: the suite's conftest configures jax for the CPU.)
 """
 
+import json
+
 import pytest
 import torch
 
-from htm_hashjoin_tpu_torch.data.generators import (local_shuffled_keys,
+from htm_hashjoin_tpu_torch import cli
+from htm_hashjoin_tpu_torch.config import Algo, Distribution, JoinConfig
+from htm_hashjoin_tpu_torch.constants import MAXI32
+from htm_hashjoin_tpu_torch.data.generators import (build_relations,
+                                                    local_shuffled_keys,
                                                     shuffled_keys,
                                                     sorted_keys, zipf_keys)
 from htm_hashjoin_tpu_torch.joins import banded_backend as bb
+from htm_hashjoin_tpu_torch.joins.radix import radix_join
 from htm_hashjoin_tpu_torch.ops import banded_count as bc
 from htm_hashjoin_tpu_torch.ops import banded_count_narrow as bcn
 from htm_hashjoin_tpu_torch.ops import fused_sort_count as fsc
 from htm_hashjoin_tpu_torch.ops import global_sort as gs
+from htm_hashjoin_tpu_torch.ops import radix_kernels as rk
+from htm_hashjoin_tpu_torch.ops import scatter_tiles as sct
 from htm_hashjoin_tpu_torch.ops import sort_tiles as st
 
 pytestmark = pytest.mark.gpu
@@ -210,3 +220,97 @@ def test_skewed_probe_and_builds_on_the_card(dev):
     assert build.output_sum == build.input_sum == n * (n + 1) // 2
     heavy = torch.full((1 << 20,), 3, dtype=torch.int32, device=dev)
     assert int(bb.tagged_count(heavy, heavy, tile=8192)) == 1 << 40
+
+
+def scatter_case(keys, tile, fanout, shift, align=False):
+    """One radix pass's K6 inputs: the tile-sorted keys and their plan."""
+    sorted_flat, _ = st.sort_tiles(rk._to_tiles(keys, tile), tile=tile,
+                                   method="bitonic")
+    bounds = rk.tile_digit_bounds(sorted_flat, fanout=fanout, shift=shift,
+                                  tile=tile)
+    parent = torch.zeros(bounds.shape[0], dtype=torch.int32,
+                         device=keys.device)
+    plan = rk.scatter_plan(bounds, parent, fanout=fanout,
+                           rows_per_tile=tile // 128, align_tiles=align,
+                           n_parents=1)
+    return sorted_flat, plan
+
+
+@pytest.mark.parametrize("tile", [2048, 8192])
+@pytest.mark.parametrize("kind,fanout,shift", [
+    ("permutation", 8, 15), ("permutation", 128, 8),
+    ("alphabet 1..3", 4, 0), ("duplicates", 128, 4)])
+def test_k6_matches_plain(dev, tile, kind, fanout, shift):
+    n = 5 * tile - 300
+    if kind == "permutation":
+        keys = shuffled_keys(n, 3, dev)
+    elif kind == "alphabet 1..3":             # runs of many rows, empty runs
+        keys = duplicates(n, dev, 5) % 3 + 1
+    else:
+        keys = duplicates(n, dev, 6)
+    sorted_flat, plan = scatter_case(keys, tile, fanout, shift,
+                                     align=kind == "duplicates")
+    args = (sorted_flat, plan.a_elem, plan.dest_row)
+    kw = dict(tile=tile, out_rows=plan.out_rows)
+    before = sct.LAUNCHES
+    got = sct.scatter_tiles(*args, **kw)
+    torch.cuda.synchronize()
+    assert sct.LAUNCHES == before + 1
+    assert torch.equal(got, sct.scatter_tiles_ref(*args, **kw))
+    vals = got[got != MAXI32]
+    assert torch.equal(torch.sort(vals).values, torch.sort(keys).values)
+
+
+@pytest.mark.parametrize("passes,bits", [(2, 6), (3, 9), (2, 14)])
+def test_multipass_partition_on_the_card_equals_the_cpu(dev, passes, bits):
+    keys = shuffled_keys((1 << 16) + 77, 4, dev)
+    kw = dict(radix_bits=bits, passes=passes, key_bits=17, tile=2048)
+    before = sct.LAUNCHES
+    got = rk.multipass_radix_partition(keys, **kw)
+    assert sct.LAUNCHES == before + len(got.pass_plans)
+    want = rk.multipass_radix_partition(keys.cpu(), **kw)
+    assert torch.equal(got.partitioned.cpu(), want.partitioned)
+    for g, w in zip(got.pass_hists, want.pass_hists):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_multipass_radix_join_on_the_card(dev):
+    n = 1 << 20
+    cfg = JoinConfig(algo=Algo.RADIX, r_size=n, data_distr=Distribution.PK,
+                     radix_bits=14, radix_passes=2, radix_strategy="multipass")
+    r, s = build_relations(cfg, dev)
+    before = sct.LAUNCHES
+    m = radix_join(r, s, cfg)
+    assert sct.LAUNCHES == before + 2
+    assert m.totalMatches == n and m.inputSum == m.outputSum == n * (n + 1) // 2
+    assert m.extra["passBits"] == [7, 7]
+    build_only = radix_join(r, None, cfg)
+    assert build_only.inputSum == build_only.outputSum
+
+
+@pytest.mark.parametrize("argv,path", [
+    (["--algo", "adaptive", "--dataDistr", "local_shuffle"], "htm"),
+    (["--algo", "adaptive", "--dataDistr", "uniform", "--distinctKeys",
+      "524288"], "radix"),
+    (["--algo", "adaptive", "--dataDistr", "random"], "radix"),
+    (["--algo", "PRO", "-r", "1048576", "-s", "2097152"], None),
+    (["--algo", "htm", "--switchSniff", "--dataDistr", "zipf"], None)])
+def test_cli_paths_on_the_card(dev, capsys, argv, path):
+    n = 1 << 20
+    if "-r" not in argv:
+        argv = argv + ["--rSize", str(n)]
+    assert cli.main(argv, device=dev) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["inputSum"] == line["outputSum"]
+    assert line.get("chosenPath") == path
+    if "--switchSniff" in argv:
+        assert line["switchedToRadix"] and line["totalMatches"] == n
+    elif "-s" in argv:
+        assert line["totalMatches"] == 2 * n
+    elif "random" not in argv:
+        assert line["totalMatches"] == n
+    else:
+        cfg, _ = cli.parse_args(argv)
+        r, _ = build_relations(cfg, dev)
+        _, counts = torch.unique(r.keys, return_counts=True)
+        assert line["totalMatches"] == int((counts.long() ** 2).sum())

@@ -1,7 +1,7 @@
 """The port package on its own: imports, generators, relation helpers, the
 kernel build's naming and the kernel wrappers' dispatch (which must never
 run the plain version for a CUDA tensor, nor launch anything for a CPU
-one)."""
+one), and the metrics, timer and oracle utilities."""
 
 import subprocess
 import sys
@@ -17,6 +17,7 @@ from htm_hashjoin_tpu_torch.ops import banded_count as bc
 from htm_hashjoin_tpu_torch.ops import banded_count_narrow as bcn
 from htm_hashjoin_tpu_torch.ops import fused_sort_count as fsc
 from htm_hashjoin_tpu_torch.ops import global_sort as gs
+from htm_hashjoin_tpu_torch.ops import scatter_tiles as sct
 from htm_hashjoin_tpu_torch.ops import sort_tiles as st
 from htm_hashjoin_tpu_torch.relation import keys_from_numpy, tiles_from_numpy
 
@@ -27,6 +28,11 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
     code = (
         "import sys\n"
         "import htm_hashjoin_tpu_torch, htm_hashjoin_tpu_torch.bench\n"
+        "import htm_hashjoin_tpu_torch.cli, htm_hashjoin_tpu_torch.config\n"
+        "from htm_hashjoin_tpu_torch.joins import adaptive, common, htm, radix\n"
+        "from htm_hashjoin_tpu_torch.ops import (partition, probe,"
+        " radix_kernels, scatter_tiles)\n"
+        "from htm_hashjoin_tpu_torch.utils import metrics, timing, validate\n"
         "from htm_hashjoin_tpu_torch.ops import _build\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('htm_hashjoin_tpu.') or m == 'htm_hashjoin_tpu']\n"
@@ -157,10 +163,11 @@ def test_library_name_follows_the_sources(tmp_path, monkeypatch):
 
 
 def other_kernel_calls(device="cpu"):
-    """(module, plain-version name, call) of K2-K5 on 2 tiles."""
+    """(module, plain-version name, call) of K2-K6 on 2 tiles."""
     keys = torch.arange(2 * TILE, dtype=torch.int32, device=device)
     s = torch.arange((2 + 17) * TILE, dtype=torch.int32, device=device)
     zeros = torch.zeros(2, dtype=torch.int32, device=device)
+    plan = torch.zeros((2, 4), dtype=torch.int32, device=device)
     return [
         (st, "sort_tiles_ref",
          lambda: st.sort_tiles(keys, tile=TILE, method="bitonic_alt")),
@@ -170,10 +177,13 @@ def other_kernel_calls(device="cpu"):
          lambda: bc.banded_count(keys, s, zeros, zeros + 1, tile=TILE)),
         (bcn, "narrow_count_ref",
          lambda: bcn.banded_count_narrow(keys, s, zeros, zeros, tile=TILE)),
+        (sct, "scatter_tiles_ref",
+         lambda: sct.scatter_tiles(keys, plan, plan, tile=TILE,
+                                   out_rows=TILE // 128)),
     ]
 
 
-@pytest.mark.parametrize("k", range(4))
+@pytest.mark.parametrize("k", range(5))
 def test_other_kernels_plain_path_counts_no_launch(k):
     mod, _, call = other_kernel_calls()[k]
     before = (mod.LAUNCHES, st.LAUNCHES)
@@ -183,7 +193,7 @@ def test_other_kernels_plain_path_counts_no_launch(k):
     assert first.device.type == "cpu"
 
 
-@pytest.mark.parametrize("k", range(4))
+@pytest.mark.parametrize("k", range(5))
 def test_other_kernels_cuda_without_cuda_raise_and_never_run_plain(
         k, monkeypatch):
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -202,7 +212,52 @@ def test_other_kernels_cuda_without_cuda_raise_and_never_run_plain(
     assert mod.LAUNCHES == before
 
 
-@pytest.mark.parametrize("k", range(4))
+@pytest.mark.parametrize("k", range(5))
 def test_other_kernels_other_device_raises(k):
     with pytest.raises(ValueError, match="cpu or cuda"):
         other_kernel_calls("meta")[k][2]()
+
+
+def test_metrics_schema_matches_jax():
+    from htm_hashjoin_tpu.utils.metrics import JoinMetrics as JaxMetrics
+    from htm_hashjoin_tpu_torch.utils.metrics import JoinMetrics
+    for algo in ("htm", "atomic", "radix"):
+        fields = dict(algo=algo, rSize=64, transactionSize=16,
+                      conflictCount=2, totalMatches=64, inputSum=5,
+                      outputSum=5, firstRoundFailureFraction=0.5)
+        got, want = JoinMetrics(**fields), JaxMetrics(**fields)
+        got.extra["backend"] = want.extra["backend"] = "pallas_banded"
+        assert got.to_json_line() == want.to_json_line()
+        assert got.conserved
+
+
+def test_oracles_and_relation():
+    from htm_hashjoin_tpu.utils import validate as jvalidate
+    from htm_hashjoin_tpu_torch.relation import Relation, next_pow2
+    from htm_hashjoin_tpu_torch.utils import validate
+    rng = np.random.default_rng(2)
+    r = rng.integers(1, 40, 500).astype(np.int32)
+    s = rng.integers(20, 60, 700).astype(np.int32)
+    want = jvalidate.reference_match_count(r, s)
+    assert validate.reference_match_count(torch.from_numpy(r),
+                                          torch.from_numpy(s)) == want
+    assert validate.reference_match_count(r, s) == want
+    assert validate.key_sum(torch.from_numpy(r)) == int(r.sum())
+    validate.assert_conserved(3, 3)
+    with pytest.raises(AssertionError, match="lost 1"):
+        validate.assert_conserved(4, 3, "ctx")
+    rel = Relation(torch.from_numpy(r))
+    assert rel.fence() is rel and rel.num_tuples == 500
+    assert rel.key_sum() == int(r.astype(np.int64).sum())
+    assert [next_pow2(v) for v in (0, 1, 2, 3, 1000)] == [1, 1, 2, 4, 1024]
+
+
+def test_phase_timer_records_phases():
+    from htm_hashjoin_tpu_torch.utils.timing import PhaseTimer
+    timer = PhaseTimer()
+    out = timer.timed("build", lambda x: (x + 1, [x * 2]), torch.ones(3))
+    timer.timed("build", lambda: None)
+    timer.timed("probe", lambda: (torch.zeros(1), 3))
+    assert torch.equal(out[0], torch.full((3,), 2.0))
+    assert set(timer.micros) == {"build", "probe"}
+    assert min(timer.micros.values()) > 0
