@@ -3,7 +3,7 @@
 
 Phases, one line each:
   1. device   - the card's name and power limit (nvidia-smi);
-  2. build    - nvcc builds the five kernels from htm_hashjoin_tpu_torch/csrc/
+  2. build    - nvcc builds the kernels from htm_hashjoin_tpu_torch/csrc/
                 (one nvcc process per source, all started together);
   3. kernel   - K1 (fused_sort_count) against its plain torch version on
                 the card, on cases of a few tiles, exactly (integer outputs;
@@ -33,7 +33,19 @@ Phases, one line each:
                 path the planner chooses: adaptive -> htm (K1), adaptive ->
                 radix on the engine's sort plan and on the sort route (held
                 to a torch.unique count), mc PRO (PK x FK), htm --switchSniff
-                -> radix; each line's counts, sums, path and kernels checked.
+                -> radix; each line's counts, sums, path and kernels checked;
+ 10. wisconsin  - K7 (K7a + K7b, the key-value global sort) against its plain
+                version on few-tile cases (one tile, two, 2^3 padded, 16
+                copies a key, rotation-packed keys with shard bits), by the
+                multiset rule (keys equal, values equal as a multiset within
+                each key); the six shipped multijoin confs at the reference's
+                2^24 PK build x 2^28 FK probe through run_multijoin, each run
+                twice and the second reported (JSON line, K7 launches, peak
+                device memory), its output held as a multiset of (build rid,
+                probe rid) pairs to a plain torch join of the same tables, K7
+                launched on every conf but no_partition; then K7a and K7
+                against their plain versions at the probe split's shape
+                (2^28 rotation-packed keys plus payload), timed.
 Then a JSON line of kernels and, last, {"ok": true, "device": {...}}.
 Any failure raises: the script exits non-zero and prints no result.  With no
 CUDA device it exits 1 at once.  Every 2^27 input is freed before the next
@@ -68,9 +80,14 @@ from htm_hashjoin_tpu_torch.ops import banded_count as bc
 from htm_hashjoin_tpu_torch.ops import banded_count_narrow as bcn
 from htm_hashjoin_tpu_torch.ops import fused_sort_count as fsc
 from htm_hashjoin_tpu_torch.ops import global_sort as gs
+from htm_hashjoin_tpu_torch.ops import global_sort_kv as gkv
 from htm_hashjoin_tpu_torch.ops import radix_kernels as rk
 from htm_hashjoin_tpu_torch.ops import scatter_tiles as sct
+from htm_hashjoin_tpu_torch.ops import sort_kv_tiles as skv
 from htm_hashjoin_tpu_torch.ops import sort_tiles as st
+from htm_hashjoin_tpu_torch.wisconsin import parse_conf, run_multijoin
+from htm_hashjoin_tpu_torch.wisconsin import partitioner as wpart
+from htm_hashjoin_tpu_torch.wisconsin.driver import load_side
 
 TILE = 8192
 LOG2_N = 27
@@ -87,7 +104,15 @@ KERNELS = {
     "banded_count_narrow": (bcn, "banded_count_narrow.cu",
                             f"{JOIN_KERNELS}:889"),
     "scatter_tiles": (sct, "scatter_tiles.cu", f"{RADIX_KERNELS}:348"),
+    "sort_kv_tiles": (skv, "sort_kv_tiles.cu", f"{JOIN_KERNELS}:561"),
+    "global_sort_kv_tiles": (gkv, "global_sort_kv.cu", f"{JOIN_KERNELS}:701"),
 }
+WISCONSIN_CONFS = "htm_hashjoin_tpu/wisconsin/conf/"
+# conf -> whether its splits sort through K7: every conf's hash node is a
+# ModuloHash over two int32 columns of 2^24 and 2^28 rows, so a side whose
+# partitioner hashes takes the kv split (partitioner.py:236-259)
+CONFS = {"no_partition": False, "independent": True, "parallel": True,
+         "radix1": True, "steal": True, "flatmem": True}
 
 
 def _require(ok: bool, what: str) -> None:
@@ -635,6 +660,185 @@ def _cli_paths(dev, card) -> dict:
     return total
 
 
+def _pairs(a, b):
+    """(a, b) int32 pairs as sorted int64 composites: a multiset."""
+    return torch.sort((a.long() << 32) | (b.long() & 0xFFFFFFFF)).values
+
+
+def _kv_err(got, want, block=None) -> int:
+    """0 when two key-value sorts agree by the multiset rule (keys equal,
+    values equal as a multiset within each key; within each ``block``-pair
+    block when given), else the largest key difference (at least 1)."""
+    (gk, gv), (wk, wv) = got, want
+    err = _err(gk, wk)
+    if block is None:
+        same = torch.equal(_pairs(gk, gv), _pairs(wk, wv))
+    else:
+        comp = [((k.long() << 32) | (v.long() & 0xFFFFFFFF)).view(-1, block)
+                for k, v in ((gk, gv), (wk, wv))]
+        same = torch.equal(comp[0].sort(1).values, comp[1].sort(1).values)
+    return err or int(not same)
+
+
+def _check_kv(dev, errs) -> None:
+    """K7 (K7a + K7b) against its plain version on cases of a few tiles of
+    the split's tile, by the multiset rule; and K7a alone (both
+    directions) against its plain version, per tile."""
+    tile = wpart.KV_TILE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+
+    def vals(n):
+        return torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    n = 100 * tile
+    keys = torch.randint(1, 1 << 24, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    shard = (torch.arange(n, device=dev, dtype=torch.int32) // 4096) % 8
+    rot = wpart._rot_pack(keys, shard, 1, 17, 6, 19, 3, 128 * tile)
+    dup = torch.repeat_interleave(torch.arange(1, 2 * tile + 1,
+                                               dtype=torch.int32,
+                                               device=dev), 16)
+    cases = [("one tile", torch.randperm(tile, generator=gen, device=dev)),
+             ("two tiles", torch.randperm(2 * tile, generator=gen,
+                                          device=dev)),
+             ("2^3 tiles, MAXI32 padding",
+              torch.cat([torch.randperm(8 * tile - 999, generator=gen,
+                                        device=dev),
+                         torch.full((999,), MAXI32, device=dev)])),
+             ("2^5 tiles, 16 copies a key",
+              dup[torch.randperm(dup.numel(), generator=gen, device=dev)]),
+             ("2^7 tiles, rotation-packed keys with 3 shard bits", rot)]
+    for case, k in cases:
+        k = k.to(torch.int32)
+        v = vals(k.numel())
+        before = (skv.LAUNCHES, gkv.LAUNCHES)
+        got = gkv.global_sort_kv_tiles(k, v, tile=tile)
+        torch.cuda.synchronize()
+        launched = (skv.LAUNCHES - before[0], gkv.LAUNCHES - before[1])
+        err = _kv_err(got, gkv.global_sort_kv_ref(k, v))
+        errs["sort_kv_tiles"] = max(errs["sort_kv_tiles"], err)
+        errs["global_sort_kv_tiles"] = max(errs["global_sort_kv_tiles"], err)
+        print(f"kernel: K7 on {case} ({k.numel()} pairs): launches K7a "
+              f"{launched[0]}, K7b {launched[1]}, max_abs_err={err}")
+        _require(not err and launched[0] == 1
+                 and launched[1] == int(k.numel() > gkv.GSORT_KV_BLOCK),
+                 f"K7 differs from its plain version on {case}")
+    k, v = dup[:8 * tile], vals(8 * tile)
+    for alternate in (False, True):
+        got = skv.sort_kv_tiles(k, v, tile=tile, alternate=alternate)
+        want = skv.sort_kv_tiles_ref(k, v, tile=tile, alternate=alternate)
+        err = _kv_err(got, want, block=tile)
+        errs["sort_kv_tiles"] = max(errs["sort_kv_tiles"], err)
+        print(f"kernel: K7a alone, 8 tiles, alternate={alternate}: "
+              f"max_abs_err={err}")
+        _require(not err, "K7a differs from its plain version")
+
+
+def _expected_pairs(conf, dev, cache) -> torch.Tensor:
+    """The multijoin's answer from a plain torch join of the conf's own two
+    tables (generated anew from the same seeds): the PK build maps each key
+    to one rid, so a probe row's partner is rid_of_key[probe key]."""
+    key = json.dumps([conf["build"], conf["probe"]], sort_keys=True)
+    if key not in cache:
+        cache.clear()
+        tb = load_side(conf["build"], ".", 1 << 20, dev)
+        tp = load_side(conf["probe"], ".", 1 << 20, dev)
+        bkeys, brid = tb.column(1), tb.column(2)
+        _require(int(bkeys.min()) >= 1 and torch.equal(
+            torch.sort(bkeys).values, torch.arange(
+                1, bkeys.numel() + 1, dtype=bkeys.dtype, device=dev)),
+            "the build side is not a primary key 1..N")
+        rid_of_key = torch.zeros(bkeys.numel() + 1, dtype=brid.dtype,
+                                 device=dev)
+        rid_of_key[bkeys.long()] = brid
+        cache[key] = _pairs(rid_of_key[tp.column(1).long()], tp.column(2))
+        del tb, tp, rid_of_key
+    return cache[key]
+
+
+def _kv_split_shape(dev):
+    """The independent conf's probe split at full scale, as K7 receives it:
+    2^28 rotation-packed keys with 3 shard bits (64 buckets, skip 17) and
+    the rid payload."""
+    conf = parse_conf(WISCONSIN_CONFS + "independent.conf")
+    side = conf["probe"]
+    page = conf["partitioner"]["probe"]["pagesize"]
+    tp = load_side(side, ".", page, dev)
+    n = tp.num_rows
+    shard = (torch.arange(n, dtype=torch.int32, device=dev) // page) % 8
+    t = wpart._rot_pack(tp.column(1), shard, 1, 17, 6, 19, 3, n)
+    return t, tp.column(2)
+
+
+def _wisconsin(dev, card, errs, times) -> dict:
+    """K7 on few tiles, the six shipped confs at the reference scale
+    through run_multijoin, then K7a and K7 at the probe split's shape."""
+    _check_kv(dev, errs)
+    total = dict.fromkeys(KERNELS, 0)
+    cache = {}
+    for name, kv in CONFS.items():
+        conf = parse_conf(f"{WISCONSIN_CONFS}{name}.conf")
+        run_multijoin(conf, device=dev)            # first run, not reported
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res = {}
+        counts = _run_path(
+            f"wisconsin {name}",
+            lambda: res.setdefault("r", run_multijoin(conf, device=dev)
+                                   ).to_json_line(),
+            {"sort_kv_tiles": int(kv), "global_sort_kv_tiles": int(kv)},
+            card)
+        peak = torch.cuda.max_memory_allocated()
+        r = res.pop("r")
+        k7 = (counts["sort_kv_tiles"], counts["global_sort_kv_tiles"])
+        rows_ok = r.output_rows == conf["probe"]["relation-size"]
+        got = _pairs(r.output.column(1), r.output.column(2))
+        del r
+        match = torch.equal(got, _expected_pairs(conf, dev, cache))
+        del got
+        print(f"path: wisconsin {name}: K7a {k7[0]}, K7b {k7[1]} launches; "
+              f"peak device memory {peak} bytes ({peak / 2**30:.3f} GiB); "
+              f"output equal to the plain join as a multiset: {match} "
+              f"[{card}]")
+        _require(rows_ok and match and (min(k7) > 0 if kv else max(k7) == 0),
+                 f"wisconsin {name}: output or K7 launches wrong")
+        for k, v in counts.items():
+            total[k] += v
+        torch.cuda.empty_cache()
+    del cache
+    _require(all(total[k] for k in ("sort_kv_tiles", "global_sort_kv_tiles")),
+             "no conf launched K7")
+
+    t, pay = _kv_split_shape(dev)
+    n = t.numel()
+    block = gkv.GSORT_KV_BLOCK
+    what = f"2^{n.bit_length() - 1} independent probe split"
+    for name, kernel_fn, plain_fn in (
+            ("sort_kv_tiles",
+             lambda: skv.sort_kv_tiles(t, pay, tile=block, alternate=True),
+             lambda: skv.sort_kv_tiles_ref(t, pay, tile=block,
+                                           alternate=True)),
+            ("global_sort_kv_tiles",
+             lambda: gkv.global_sort_kv_tiles(t, pay, tile=wpart.KV_TILE),
+             lambda: gkv.global_sort_kv_ref(t, pay))):
+        got, want = kernel_fn(), plain_fn()
+        err = _kv_err(got, want,
+                      block=block if name == "sort_kv_tiles" else None)
+        errs[name] = max(errs[name], err)
+        _require(not err, f"{name} differs from its plain version at {what}")
+        del got, want
+        ms = _events_ms(kernel_fn, 3)
+        plain_ms = _events_ms(plain_fn, 3)
+        times[name] = (ms, plain_ms)
+        print(f"kernel times: {name} at {what}: {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, max_abs_err={err} [{card}]")
+    del t, pay
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -763,8 +967,10 @@ def main() -> int:
     # 6-7. every other path at 2^27, then K2-K5 at their paths' shapes
     counts = _paths(dev, card, errs, times)
     counts["fused_sort_count"] += main_counts["fused_sort_count"]
-    # 8-9. K6 and the multipass radix join, then the CLI's paths
-    for more in (_radix(dev, card, errs, times), _cli_paths(dev, card)):
+    # 8-10. K6 and the multipass radix join, the CLI's paths, then K7 and
+    # the Wisconsin multijoin
+    for more in (_radix(dev, card, errs, times), _cli_paths(dev, card),
+                 _wisconsin(dev, card, errs, times)):
         for k, v in more.items():
             counts[k] += v
     for name in KERNELS:

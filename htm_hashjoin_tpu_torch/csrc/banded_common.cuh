@@ -1,6 +1,7 @@
 // Device code shared by the banded join's kernels (K1 fused sort + count,
-// K2 tile sort, K3 global sort, K4 general count, K5 narrow count): the
-// shared-memory sorting networks, 16-byte tile copies, the band binary
+// K2 tile sort, K3 global sort, K4 general count, K5 narrow count) and the
+// key-value sort (K7a, K7b): the shared-memory sorting networks (keys only
+// and key-value), 16-byte tile copies, the band binary
 // searches, block reductions, the per-tile stats row and the narrow-band
 // count with its exactness certificate.  One definition each, so the
 // kernels cannot drift apart on them (the JAX package's make_tile_stats_row
@@ -64,6 +65,50 @@ __device__ void sort_segments(int* s, int n, int seg, int k0) {
         }
         __syncthreads();
         merge_stages(s, n, h >> 1);
+    }
+}
+
+// The key-value forms of the networks above (K7): keys are compared, and a
+// key's value moves with it.  Ties are left in place, so equal keys keep
+// whatever value order the network gives them (a bitonic network is not
+// stable, on the TPU either).
+__device__ __forceinline__ void compare_exchange_kv(int* k, int* v, int i,
+                                                    int j) {
+    const int a = k[i];
+    const int b = k[j];
+    if (b < a) {
+        k[i] = b;
+        k[j] = a;
+        const int t = v[i];
+        v[i] = v[j];
+        v[j] = t;
+    }
+}
+
+__device__ void merge_stages_kv(int* k, int* v, int n, int h) {
+    const int pairs = n >> 1;
+    for (int d = h; d >= 1; d >>= 1) {
+        for (int p = threadIdx.x; p < pairs; p += blockDim.x) {
+            const int i = ((p & ~(d - 1)) << 1) | (p & (d - 1));
+            compare_exchange_kv(k, v, i, i + d);
+        }
+        __syncthreads();
+    }
+}
+
+// Sorts k[0, n) ascending, v riding (n a power of two), in the flip form
+// of sort_segments.  Ends synchronised.
+__device__ void sort_kv(int* k, int* v, int n) {
+    const int pairs = n >> 1;
+    for (int kk = 2; kk <= n; kk <<= 1) {
+        const int h = kk >> 1;
+        for (int p = threadIdx.x; p < pairs; p += blockDim.x) {
+            const int r = p & (h - 1);
+            const int i = ((p & ~(h - 1)) << 1) | r;
+            compare_exchange_kv(k, v, i, (i | (kk - 1)) - r);
+        }
+        __syncthreads();
+        merge_stages_kv(k, v, n, h >> 1);
     }
 }
 

@@ -106,6 +106,8 @@ def load_library() -> ctypes.CDLL:
         "htm_banded_count": [p, p, i64, p, p, p, p, i, i, p],
         "htm_banded_count_narrow": [p, p, i64, p, p, p, p, i, i, p],
         "htm_scatter_tiles": [p, p, p, p, i64, i, i, i, p],
+        "htm_sort_kv_tiles": [p, p, p, p, i, i, i, p],
+        "htm_global_sort_kv_levels": [p, p, i64, i, i, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -1,7 +1,9 @@
 """The CUDA kernels (K1 fused sort + count, K2 tile sort, K3 global sort,
 K4 general count, K5 narrow count, K6 radix scatter) against their plain
 torch versions on the card, exactly, the join plans that run them, the
-multipass radix join and one CLI run per path the planner chooses.
+multipass radix join and one CLI run per path the planner chooses; K7a and
+K7 (the key-value global sort) by the multiset rule, the Wisconsin kv split
+and three multijoin confs at a cut scale.
 
 Needs a CUDA device and nvcc; elsewhere every test skips.  The file imports
 no jax, so it runs where jax is absent:
@@ -29,8 +31,10 @@ from htm_hashjoin_tpu_torch.ops import banded_count as bc
 from htm_hashjoin_tpu_torch.ops import banded_count_narrow as bcn
 from htm_hashjoin_tpu_torch.ops import fused_sort_count as fsc
 from htm_hashjoin_tpu_torch.ops import global_sort as gs
+from htm_hashjoin_tpu_torch.ops import global_sort_kv as gkv
 from htm_hashjoin_tpu_torch.ops import radix_kernels as rk
 from htm_hashjoin_tpu_torch.ops import scatter_tiles as sct
+from htm_hashjoin_tpu_torch.ops import sort_kv_tiles as skv
 from htm_hashjoin_tpu_torch.ops import sort_tiles as st
 
 pytestmark = pytest.mark.gpu
@@ -314,3 +318,104 @@ def test_cli_paths_on_the_card(dev, capsys, argv, path):
         r, _ = build_relations(cfg, dev)
         _, counts = torch.unique(r.keys, return_counts=True)
         assert line["totalMatches"] == int((counts.long() ** 2).sum())
+
+
+def kv_pairs(keys, vals):
+    """A key-value sort's (key, value) multiset: sorted int64 composites."""
+    return torch.sort((keys.long() << 32) | (vals.long() & 0xFFFFFFFF)).values
+
+
+@pytest.mark.parametrize("tile", [2048, 8192, 16384])
+@pytest.mark.parametrize("n_tiles", [1, 2, 8, 64])
+@pytest.mark.parametrize("kind", ["permutation", "duplicates", "padded"])
+def test_k7_matches_plain(dev, tile, n_tiles, kind):
+    """K7a + K7b against the stable sort, by the multiset rule: keys
+    equal, values equal as a multiset within each key."""
+    n = tile * n_tiles
+    keys = (shuffled_keys(n, 5, dev) if kind == "permutation"
+            else duplicates(n, dev, 6))
+    if kind == "padded":
+        keys[n - 999:] = MAXI32
+    vals = duplicates(n, dev, 7) - n // 14
+    before = (skv.LAUNCHES, gkv.LAUNCHES)
+    got = gkv.global_sort_kv_tiles(keys, vals, tile=tile)
+    torch.cuda.synchronize()
+    assert skv.LAUNCHES == before[0] + 1
+    assert gkv.LAUNCHES == before[1] + (n > gkv.GSORT_KV_BLOCK)
+    want = gkv.global_sort_kv_ref(keys, vals)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(kv_pairs(*got), kv_pairs(*want))
+
+
+@pytest.mark.parametrize("tile", skv.KERNEL_TILES)
+@pytest.mark.parametrize("alternate", [False, True])
+def test_k7a_matches_plain(dev, tile, alternate):
+    keys = duplicates(4 * tile, dev, 8)
+    vals = torch.arange(4 * tile, dtype=torch.int32, device=dev)
+    got = skv.sort_kv_tiles(keys, vals, tile=tile, alternate=alternate)
+    want = skv.sort_kv_tiles_ref(keys, vals, tile=tile, alternate=alternate)
+    assert torch.equal(got[0], want[0])
+    for t in range(4):
+        part = slice(t * tile, (t + 1) * tile)
+        assert torch.equal(kv_pairs(got[0][part], got[1][part]),
+                           kv_pairs(want[0][part], want[1][part]))
+
+
+@pytest.mark.parametrize("algo", ["parallel", "independent", "radix"])
+def test_kv_split_on_the_card(dev, algo):
+    """At the kv gate's 2^22 rows the split goes through K7 on the card;
+    sizes and offsets equal the CPU's stable split."""
+    from htm_hashjoin_tpu_torch import wisconsin as P
+    n = 1 << 22
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    keys = torch.randint(1, 1 << 24, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    rid = torch.arange(1, n + 1, dtype=torch.int32, device=dev)
+    node = {"algorithm": algo, "pagesize": 131072, "attribute": 1}
+    hash_node = {"fn": "modulo", "range": [1, 1 << 24], "buckets": 2048,
+                 "skipbits": 12}
+    splits = []
+    for d in (dev, torch.device("cpu")):
+        t = P.WriteTable(P.Schema.create(("long", "long")), 131072, d)
+        t.append_batch([keys.to(d), rid.to(d)])
+        t.finalize()
+        before = gkv.LAUNCHES
+        splits.append(P.partitioner_factory(node, hash_node, 8).split(t))
+        assert gkv.LAUNCHES == before + (d.type == "cuda")
+    got, want = splits
+    assert (got.sizes == want.sizes).all() and \
+        (got.offsets == want.offsets).all()
+    for p in range(0, 2048, 97):
+        seg = slice(int(want.offsets[p]), int(want.offsets[p] + want.sizes[p]))
+        assert torch.equal(
+            kv_pairs(*(c[seg].cpu() for c in got.table.columns)),
+            kv_pairs(*(c[seg] for c in want.table.columns)))
+
+
+@pytest.mark.parametrize("name", ["no_partition", "independent", "steal"])
+def test_multijoin_confs_on_the_card(dev, name):
+    """A shipped conf cut to 2^20 ⋈ 2^24 (the kv gate passes on the probe
+    side): the output, as (build rid, probe rid) pairs, equals a plain join
+    of the same tables (made anew from the conf's seeds on the card)."""
+    import os
+    from htm_hashjoin_tpu_torch import wisconsin as P
+    from htm_hashjoin_tpu_torch.wisconsin.driver import load_side
+    conf = P.parse_conf(os.path.join(os.path.dirname(__file__), "..",
+                                     "htm_hashjoin_tpu", "wisconsin", "conf",
+                                     f"{name}.conf"))
+    for side, size in (("build", 1 << 20), ("probe", 1 << 24)):
+        conf[side]["relation-size"] = size
+        conf[side]["alphabet-size"] = 1 << 20
+    before = gkv.LAUNCHES
+    res = P.run_multijoin(conf, device=dev)
+    assert (gkv.LAUNCHES > before) == (name != "no_partition")
+    line = json.loads(res.to_json_line())
+    assert line["outputRows"] == 1 << 24 and line["buildRows"] == 1 << 20
+    build = load_side(conf["build"], ".", 1 << 20, dev)
+    probe = load_side(conf["probe"], ".", 1 << 20, dev)
+    rid_of_key = torch.zeros((1 << 20) + 1, dtype=torch.int32, device=dev)
+    rid_of_key[build.column(1).long()] = build.column(2)
+    want = kv_pairs(rid_of_key[probe.column(1).long()], probe.column(2))
+    assert torch.equal(kv_pairs(res.output.column(1), res.output.column(2)),
+                       want)

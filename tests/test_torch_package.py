@@ -17,7 +17,9 @@ from htm_hashjoin_tpu_torch.ops import banded_count as bc
 from htm_hashjoin_tpu_torch.ops import banded_count_narrow as bcn
 from htm_hashjoin_tpu_torch.ops import fused_sort_count as fsc
 from htm_hashjoin_tpu_torch.ops import global_sort as gs
+from htm_hashjoin_tpu_torch.ops import global_sort_kv as gkv
 from htm_hashjoin_tpu_torch.ops import scatter_tiles as sct
+from htm_hashjoin_tpu_torch.ops import sort_kv_tiles as skv
 from htm_hashjoin_tpu_torch.ops import sort_tiles as st
 from htm_hashjoin_tpu_torch.relation import keys_from_numpy, tiles_from_numpy
 
@@ -31,7 +33,9 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
         "import htm_hashjoin_tpu_torch.cli, htm_hashjoin_tpu_torch.config\n"
         "from htm_hashjoin_tpu_torch.joins import adaptive, common, htm, radix\n"
         "from htm_hashjoin_tpu_torch.ops import (partition, probe,"
-        " radix_kernels, scatter_tiles)\n"
+        " radix_kernels, scatter_tiles, global_sort_kv, sort_kv_tiles)\n"
+        "import htm_hashjoin_tpu_torch.wisconsin\n"
+        "import htm_hashjoin_tpu_torch.wisconsin.__main__\n"
         "from htm_hashjoin_tpu_torch.utils import metrics, timing, validate\n"
         "from htm_hashjoin_tpu_torch.ops import _build\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -163,7 +167,8 @@ def test_library_name_follows_the_sources(tmp_path, monkeypatch):
 
 
 def other_kernel_calls(device="cpu"):
-    """(module, plain-version name, call) of K2-K6 on 2 tiles."""
+    """(module, plain-version name, call) of K2-K6, K7a and K7 on 2
+    tiles."""
     keys = torch.arange(2 * TILE, dtype=torch.int32, device=device)
     s = torch.arange((2 + 17) * TILE, dtype=torch.int32, device=device)
     zeros = torch.zeros(2, dtype=torch.int32, device=device)
@@ -180,10 +185,14 @@ def other_kernel_calls(device="cpu"):
         (sct, "scatter_tiles_ref",
          lambda: sct.scatter_tiles(keys, plan, plan, tile=TILE,
                                    out_rows=TILE // 128)),
+        (skv, "sort_kv_tiles_ref",
+         lambda: skv.sort_kv_tiles(keys, keys, tile=TILE, alternate=True)),
+        (gkv, "global_sort_kv_ref",
+         lambda: gkv.global_sort_kv_tiles(keys, keys, tile=TILE)),
     ]
 
 
-@pytest.mark.parametrize("k", range(5))
+@pytest.mark.parametrize("k", range(7))
 def test_other_kernels_plain_path_counts_no_launch(k):
     mod, _, call = other_kernel_calls()[k]
     before = (mod.LAUNCHES, st.LAUNCHES)
@@ -193,7 +202,7 @@ def test_other_kernels_plain_path_counts_no_launch(k):
     assert first.device.type == "cpu"
 
 
-@pytest.mark.parametrize("k", range(5))
+@pytest.mark.parametrize("k", range(7))
 def test_other_kernels_cuda_without_cuda_raise_and_never_run_plain(
         k, monkeypatch):
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -212,7 +221,7 @@ def test_other_kernels_cuda_without_cuda_raise_and_never_run_plain(
     assert mod.LAUNCHES == before
 
 
-@pytest.mark.parametrize("k", range(5))
+@pytest.mark.parametrize("k", range(7))
 def test_other_kernels_other_device_raises(k):
     with pytest.raises(ValueError, match="cpu or cuda"):
         other_kernel_calls("meta")[k][2]()
