@@ -8,7 +8,9 @@ Phases, one line each:
   3. kernel   - K1 (fused_sort_count) against its plain torch version on
                 the card, on cases of a few tiles, exactly (integer outputs;
                 counts only on tiles with zero inversions); then K2 (all four
-                sorters), K3, K4 and K5 against theirs, exactly;
+                sorters), K3 (the radix sort, on negatives with INT32_MIN,
+                constant and two-valued keys too), K4 and K5 against theirs,
+                exactly;
   4. main     - the headline join, 2^27 locality build + 2^27 sorted probe,
                 through banded_join_pipelined with bench.py's asserts and a
                 count of K1 launches; then the abort -> bitonic retry at 2^24;
@@ -19,9 +21,14 @@ Phases, one line each:
                 sort-first, the sort-first switch, the skewed probe with its
                 repair, the heavy hitter's tagged count; exact answers, each
                 kernel's launches (counts set to 0 just before each path, read
-                just after) and the wall time;
+                just after), the wall time and the peak device memory;
+     profile  - each path that sorts with K3 or K7 (here, in the CLI
+                phase with its relations already on the card, and once per
+                Wisconsin conf that splits) again: walls, then one call under
+                torch.profiler (busy, its largest kernels, idle share);
   7. kernel times - K2-K5 at their paths' shapes against their plain
-                versions (held equal there too);
+                versions (held equal there too) and, for K2 and K3, against
+                one torch.sort call;
   8. radix      - K6 against its plain version on cases of a few tiles
                 (fanout 128 at tile 8192, empty runs, runs of many rows,
                 three passes), exactly; the multipass radix join at 2^27
@@ -34,19 +41,26 @@ Phases, one line each:
                 radix on the engine's sort plan and on the sort route (held
                 to a torch.unique count), mc PRO (PK x FK), htm --switchSniff
                 -> radix; each line's counts, sums, path and kernels checked;
- 10. wisconsin  - K7 (K7a + K7b, the key-value global sort) against its plain
-                version on few-tile cases (one tile, two, 2^3 padded, 16
-                copies a key, rotation-packed keys with shard bits), by the
-                multiset rule (keys equal, values equal as a multiset within
-                each key); the six shipped multijoin confs at the reference's
-                2^24 PK build x 2^28 FK probe through run_multijoin, each run
-                twice and the second reported (JSON line, K7 launches, peak
-                device memory), its output held as a multiset of (build rid,
-                probe rid) pairs to a plain torch join of the same tables, K7
-                launched on every conf but no_partition; then K7a and K7
-                against their plain versions at the probe split's shape
-                (2^28 rotation-packed keys plus payload), timed.
-Then a JSON line of kernels and, last, {"ok": true, "device": {...}}.
+ 10. wisconsin  - K7 (the key-value radix sort) against its plain version
+                (stable sort + gather) on few-tile cases (one tile, two, 2^3
+                padded, 16 copies a key, rotation-packed keys with shard
+                bits, negatives, two values), exactly; K7a (the TPU's phase
+                A, on no path now) alone against its plain version by the
+                multiset rule within each block; the six shipped multijoin
+                confs at the reference's 2^24 PK build x 2^28 FK probe
+                through run_multijoin, each run twice and the second reported
+                (JSON line, K7 launches, peak device memory), its output held
+                as a multiset of (build rid, probe rid) pairs to a plain torch
+                join of the same tables, K7 launched on every conf but
+                no_partition; then K7 (exactly, and against the stable sort +
+                gather) and K7a against their plain versions at the probe
+                split's shape (2^28 rotation-packed keys plus payload),
+                timed.
+Then a JSON line of kernels (launches on the paths, largest error, the
+kernel's, its plain version's and a library call's time, and its bound: the
+bytes of its inputs and outputs over 3.35 TB/s; K7a, which no path runs,
+has 0 launches there and its kernel phase's launches apart, as
+kernel_phase_launches) and, last, {"ok": true, "device": {...}}.
 Any failure raises: the script exits non-zero and prints no result.  With no
 CUDA device it exits 1 at once.  Every 2^27 input is freed before the next
 is made.
@@ -73,6 +87,7 @@ from htm_hashjoin_tpu_torch.data.generators import (build_relations,
                                                     local_shuffled_keys,
                                                     pk_keys, shuffled_keys,
                                                     sorted_keys, zipf_keys)
+from htm_hashjoin_tpu_torch.joins import DISPATCH
 from htm_hashjoin_tpu_torch.joins import banded_backend as bb
 from htm_hashjoin_tpu_torch.joins.radix import radix_join
 from htm_hashjoin_tpu_torch.ops import _build
@@ -99,14 +114,18 @@ RADIX_KERNELS = "htm_hashjoin_tpu/ops/pallas/radix_kernels.py"
 KERNELS = {
     "fused_sort_count": (fsc, "fused_sort_count.cu", f"{JOIN_KERNELS}:1068"),
     "sort_tiles": (st, "sort_tiles.cu", f"{JOIN_KERNELS}:238"),
-    "global_sort_tiles": (gs, "global_sort.cu", f"{JOIN_KERNELS}:429"),
+    "global_sort_tiles": (gs, "radix_sort.cu", f"{JOIN_KERNELS}:429"),
     "banded_count": (bc, "banded_count.cu", f"{JOIN_KERNELS}:1240"),
     "banded_count_narrow": (bcn, "banded_count_narrow.cu",
                             f"{JOIN_KERNELS}:889"),
     "scatter_tiles": (sct, "scatter_tiles.cu", f"{RADIX_KERNELS}:348"),
     "sort_kv_tiles": (skv, "sort_kv_tiles.cu", f"{JOIN_KERNELS}:561"),
-    "global_sort_kv_tiles": (gkv, "global_sort_kv.cu", f"{JOIN_KERNELS}:701"),
+    "global_sort_kv_tiles": (gkv, "radix_sort.cu", f"{JOIN_KERNELS}:701"),
 }
+# kernels on no path, each with the reason: held to their plain versions
+# and timed, but exempt from the check that a path launched them
+OFF_PATH = {"sort_kv_tiles": "the radix sort behind K7 needs no phase A"}
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory, NVIDIA's data sheet
 WISCONSIN_CONFS = "htm_hashjoin_tpu/wisconsin/conf/"
 # conf -> whether its splits sort through K7: every conf's hash node is a
 # ModuloHash over two int32 columns of 2^24 and 2^28 rows, so a side whose
@@ -171,6 +190,24 @@ def _events_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def _nbytes(*items) -> int:
+    """Bytes of the tensors among ``items`` (tuples and lists opened)."""
+    total = 0
+    for x in items:
+        if isinstance(x, (tuple, list)):
+            total += _nbytes(*x)
+        elif isinstance(x, torch.Tensor):
+            total += x.numel() * x.element_size()
+    return total
+
+
+def _bound_ms(inputs, outputs) -> float:
+    """The least time the card could take: each input byte read once and
+    each output byte written once at the device-memory rate (no kernel
+    here does arithmetic worth a bound of its own)."""
+    return _nbytes(inputs, outputs) / HBM_BYTES_PER_S * 1e3
+
+
 def _reset_counts() -> None:
     for mod, _, _ in KERNELS.values():
         mod.LAUNCHES = 0
@@ -194,6 +231,16 @@ def _duplicates(n, dev, seed):
     gen.manual_seed(seed)
     return torch.randint(1, n // 7, (n,), generator=gen, device=dev,
                          dtype=torch.int32)
+
+
+def _full_range(n, dev, seed):
+    """Keys over the whole int32 range, every 97th INT32_MIN."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    keys = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    keys[::97] = -2**31
+    return keys
 
 
 def _count_inputs(dev, n_tiles=6):
@@ -229,8 +276,13 @@ def _check_other_kernels(dev, errs: dict) -> None:
                   f"{int(want[1][:, 2].sum())}, max_abs_err={err}")
             _require(not err, f"K2 {method} differs from its plain version")
     for n in (4 * TILE + 77, (1 << 20) + 5):
+        wide = _full_range(n, dev, 3)
         for kind, keys in (("permutation", shuffled_keys(n, 1, dev)),
-                           ("duplicates", _duplicates(n, dev, 2))):
+                           ("duplicates", _duplicates(n, dev, 2)),
+                           ("negatives and INT32_MIN", wide),
+                           ("all equal", torch.full_like(wide, -7)),
+                           ("two values", torch.where(wide < 0, 3, -5)
+                            .to(torch.int32))):
             padded = bb.to_tiles_pow2(keys, TILE)
             err = _err(gs.global_sort_tiles(padded, tile=TILE),
                        gs.global_sort_ref(padded))
@@ -284,15 +336,17 @@ def _run_path(name, fn, expect, card) -> dict:
     """Drive one path with every launch count set to 0 just before it and
     read just after; check its outcome and the kernels it must launch."""
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
     print(f"path: {name}: {out}; launches "
-          f"{ {k: v for k, v in counts.items() if v} }; wall {wall:.4f} s "
-          f"[{card}]")
+          f"{ {k: v for k, v in counts.items() if v} }; wall {wall:.4f} s; "
+          f"peak device memory {peak / 2**30:.3f} GiB [{card}]")
     for kernel, least in expect.items():
         _require(counts[kernel] >= least,
                  f"{name} launched {kernel} {counts[kernel]} times, "
@@ -300,24 +354,78 @@ def _run_path(name, fn, expect, card) -> dict:
     return counts
 
 
-def _time_pair(name, what, kernel_fn, plain_fn, errs, times, card, reps=10,
-               keep=True):
+def _profile(name, fn, card, reps=3) -> None:
+    """Walls of ``reps`` more calls of a path (each ending in a
+    synchronise), then one call under torch.profiler: device busy time (the
+    sum of its kernels, fills and copies), the four largest kernels, and
+    the idle share 1 - busy / the median unprofiled wall (the profiler's
+    own cost stretches the profiled call's wall, so its share is printed
+    beside, not used); and the peak device memory over these calls, the
+    path's inputs included."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            key = e.name.replace("(anonymous namespace)::", "")
+            key = key.removeprefix("void ").split("(")[0].split("<")[0]
+            key = key.split("::")[-1]
+            by_name[key] = by_name.get(key, 0.0) + e.device_time / 1e3
+    busy = sum(by_name.values())
+    median = float(np.median(walls))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    print(f"profile: {name}: walls {', '.join(f'{w:.3f}' for w in walls)} "
+          f"ms (median {median:.3f}); busy {busy:.3f} ms, idle "
+          f"{100 * (1 - busy / median):.1f} % of the median wall; profiled "
+          f"call {wall:.3f} ms, idle {100 * (1 - busy / wall):.1f} % of it; "
+          f"{'; '.join(f'{k} {v:.3f}' for k, v in top)}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+          f"[{card}]")
+
+
+def _time_pair(name, what, kernel_fn, plain_fn, errs, times, card, inputs,
+               library_fn=None, reps=10, keep=True, library_is_plain=False):
     """Hold a kernel equal to its plain version at a path's shape, then time
-    both with CUDA events; the first shape timed is the one reported
-    (``keep=False`` prints a shape's times without reporting them)."""
+    it, the plain version and, where one torch call computes the same
+    function, that call with CUDA events, in that order; the bound counts
+    ``inputs`` and the kernel's outputs.  Where the plain version is itself
+    that library call (``library_is_plain``), its time is reported for both.
+    The first shape timed is the one reported (``keep=False`` prints a
+    shape's times without reporting them)."""
     got, want = kernel_fn(), plain_fn()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     err = max(_err(g, w) for g, w in zip(got, want))
     errs[name] = max(errs[name], err)
     _require(not err, f"{name} differs from its plain version at {what}")
+    bound = _bound_ms(inputs, got)
     del got, want
     ms = _events_ms(kernel_fn, reps)
     plain_ms = _events_ms(plain_fn, 3)
+    library_ms = _events_ms(library_fn, reps) if library_fn else None
+    if library_is_plain:
+        library_ms = plain_ms
     if keep:
-        times.setdefault(name, (ms, plain_ms))
+        times.setdefault(name, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                    library_ms=library_ms))
+    lib = ("the plain version" if library_is_plain else
+           f"{library_ms:.4f} ms" if library_fn else "none")
     print(f"kernel times: {name} at {what}: {ms:.4f} ms, plain {plain_ms:.4f}"
-          f" ms, max_abs_err={err} [{card}]")
+          f" ms, library {lib}, bound {bound:.4f} ms, max_abs_err={err} "
+          f"[{card}]")
 
 
 def _paths(dev, card, errs, times) -> dict:
@@ -348,7 +456,8 @@ def _paths(dev, card, errs, times) -> dict:
     kw = dict(tile=TILE, method="blocks", passes=WINDOW)
     _time_pair("sort_tiles", f"2^{LOG2_N} blocks w16",
                lambda: st.sort_tiles(r_flat, **kw),
-               lambda: st.sort_tiles_ref(r_flat, **kw), errs, times, card)
+               lambda: st.sort_tiles_ref(r_flat, **kw), errs, times, card,
+               (r_flat,), lambda: torch.sort(r_flat.view(-1, TILE), dim=1))
     del r, r_flat
 
     # build-only, no locality: per-tile bitonic
@@ -364,7 +473,8 @@ def _paths(dev, card, errs, times) -> dict:
     kw = dict(tile=TILE, method="bitonic")
     _time_pair("sort_tiles", f"2^{LOG2_N} bitonic",
                lambda: st.sort_tiles(r, **kw),
-               lambda: st.sort_tiles_ref(r, **kw), errs, times, card)
+               lambda: st.sort_tiles_ref(r, **kw), errs, times, card,
+               (r,), lambda: torch.sort(r.view(-1, TILE), dim=1))
     del r
 
     # wide band: window 4096 > 512 takes the bitonic tile sort and K4
@@ -391,26 +501,28 @@ def _paths(dev, card, errs, times) -> dict:
                                        tile=TILE),
                lambda: bc.banded_count_ref(sorted_flat, s2d, row_off,
                                            n_chunks, tile=TILE),
-               errs, times, card)
+               errs, times, card, (sorted_flat, s2d, row_off, n_chunks))
     del r, sorted_flat, stats
 
-    # sort-first: shuffled R sorted globally (K2 phase A + K3), then K5
+    # sort-first: shuffled R sorted globally (K3), then K5
     r = shuffled_keys(n, 3, dev)
     res = {}
     add(_run_path(
         "sort-first shuffled x sorted (presort, unique_both)",
         lambda: res.setdefault("out", bb.banded_join_pipelined(
             r, s, tile=TILE, presort=True, unique_both=True, s2d=s2d)),
-        {"sort_tiles": 1, "global_sort_tiles": 1, "banded_count_narrow": 1},
-        card))
+        {"global_sort_tiles": 1, "banded_count_narrow": 1}, card))
     out = res["out"]
     _require(out.matches == n and out.overflow_tiles == 0
              and out.output_sum == out.input_sum == gauss,
              f"sort-first: {out}")
+    _profile("sort-first", lambda: bb.banded_join_pipelined(
+        r, s, tile=TILE, presort=True, unique_both=True, s2d=s2d), card)
     padded = bb.to_tiles_pow2(r, TILE)
-    _time_pair("global_sort_tiles", f"2^{LOG2_N} shuffled (K2 phase A + K3)",
+    _time_pair("global_sort_tiles", f"2^{LOG2_N} shuffled",
                lambda: gs.global_sort_tiles(padded, tile=TILE),
-               lambda: gs.global_sort_ref(padded), errs, times, card, reps=5)
+               lambda: gs.global_sort_ref(padded), errs, times, card,
+               (padded,), reps=5, library_is_plain=True)
     r_sorted = gs.global_sort_tiles(padded, tile=TILE)
     mins, maxs, _ = st.tile_stats(r_sorted, TILE)
     row_off, rows_needed = bb._rows(*bb._slice_offsets(s, mins, maxs))
@@ -419,7 +531,7 @@ def _paths(dev, card, errs, times) -> dict:
                                                rows_needed, tile=TILE),
                lambda: bcn.banded_count_narrow_ref(r_sorted, s2d, row_off,
                                                    rows_needed, tile=TILE),
-               errs, times, card)
+               errs, times, card, (r_sorted, s2d, row_off, rows_needed))
     del padded, r_sorted
 
     # the switch: locality declared but absent -> K1, K1 retry, sort-first
@@ -434,6 +546,8 @@ def _paths(dev, card, errs, times) -> dict:
     _require(out.resorted and out.violations > 0
              and out.overflow_tiles > tiles // 8 and out.matches == n
              and out.output_sum == out.input_sum == gauss, f"switch: {out}")
+    _profile("switch", lambda: bb.banded_join_pipelined(
+        r, s, tile=TILE, locality_window=WINDOW, s2d=s2d), card)
     del r, s, s2d
 
     # skewed probe: shuffled pk R x unsorted zipf S (mc -z), repair included
@@ -449,6 +563,8 @@ def _paths(dev, card, errs, times) -> dict:
     _require(out.overflow_tiles > 0 and out.matches == n
              and out.output_sum == out.input_sum == gauss,
              f"skewed probe: {out}")
+    _profile("skewed probe", lambda: bb.banded_join_pipelined(
+        r, s, tile=TILE, sort_s=True, presort=True), card)
     del r, s
 
     # heavy hitter: 2^24 copies of one key a side, 2^48 pairs
@@ -463,6 +579,8 @@ def _paths(dev, card, errs, times) -> dict:
     out = res["out"]
     _require(out.matches == m * m and out.resorted,
              f"heavy hitter: {out}")
+    _profile("heavy hitter", lambda: bb.banded_join_pipelined(
+        hot, hot, tile=TILE, presorted=True), card)
     del hot
     torch.cuda.empty_cache()
     return total
@@ -542,8 +660,6 @@ def _radix(dev, card, errs, times) -> dict:
                      radix_bits=14, radix_passes=2,
                      radix_strategy="multipass", seed=11)
     r, s = build_relations(cfg, dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     res = {}
     counts = _run_path(
         "multipass radix pk x sorted, 14 bits in 2 passes (radix_join)",
@@ -581,7 +697,8 @@ def _radix(dev, card, errs, times) -> dict:
     _time_pair("scatter_tiles", f"2^{LOG2_N} pass 1 ({plan.a_elem.shape[0]} "
                f"tiles -> {plan.out_rows} rows)",
                lambda: sct.scatter_tiles(*args, **kw),
-               lambda: sct.scatter_tiles_ref(*args, **kw), errs, times, card)
+               lambda: sct.scatter_tiles_ref(*args, **kw), errs, times, card,
+               args)
     out1 = sct.scatter_tiles(*args, **kw)
     parent = rk._parents_from_regions(plan.region_rows,
                                       n_tiles=out1.numel() // TILE,
@@ -596,7 +713,7 @@ def _radix(dev, card, errs, times) -> dict:
                f"tiles -> {plan.out_rows} rows)",
                lambda: sct.scatter_tiles(*args, **kw),
                lambda: sct.scatter_tiles_ref(*args, **kw), errs, times, card,
-               reps=5, keep=False)
+               args, reps=5, keep=False)
     del args, sorted_flat, plan
     torch.cuda.empty_cache()
     return total
@@ -656,6 +773,14 @@ def _cli_paths(dev, card) -> dict:
         else:
             ok = ok and d["totalMatches"] == n
         _require(ok, f"cli {argv}: {d}")
+        if "global_sort_tiles" in expect:
+            # the join alone, relations already on the card, as cli.main
+            # times it
+            cfg, _ = cli.parse_args(argv)
+            r, s = build_relations(cfg, dev)
+            _profile(f"cli {' '.join(argv[:4])}",
+                     lambda: DISPATCH[cfg.algo.value](r, s, cfg), card)
+            del r, s
         torch.cuda.empty_cache()
     return total
 
@@ -681,9 +806,9 @@ def _kv_err(got, want, block=None) -> int:
 
 
 def _check_kv(dev, errs) -> None:
-    """K7 (K7a + K7b) against its plain version on cases of a few tiles of
-    the split's tile, by the multiset rule; and K7a alone (both
-    directions) against its plain version, per tile."""
+    """K7 against its plain version (stable sort + gather) on cases of a few
+    tiles of the split's tile, exactly; and K7a alone (both directions)
+    against its plain version by the multiset rule within each tile."""
     tile = wpart.KV_TILE
     gen = torch.Generator(device=dev)
     gen.manual_seed(17)
@@ -700,6 +825,7 @@ def _check_kv(dev, errs) -> None:
     dup = torch.repeat_interleave(torch.arange(1, 2 * tile + 1,
                                                dtype=torch.int32,
                                                device=dev), 16)
+    wide = _full_range(4 * tile, dev, 18)
     cases = [("one tile", torch.randperm(tile, generator=gen, device=dev)),
              ("two tiles", torch.randperm(2 * tile, generator=gen,
                                           device=dev)),
@@ -709,7 +835,9 @@ def _check_kv(dev, errs) -> None:
                          torch.full((999,), MAXI32, device=dev)])),
              ("2^5 tiles, 16 copies a key",
               dup[torch.randperm(dup.numel(), generator=gen, device=dev)]),
-             ("2^7 tiles, rotation-packed keys with 3 shard bits", rot)]
+             ("2^7 tiles, rotation-packed keys with 3 shard bits", rot),
+             ("2^2 tiles, negatives and INT32_MIN", wide),
+             ("2^2 tiles, two values", torch.where(wide < 0, 3, -5))]
     for case, k in cases:
         k = k.to(torch.int32)
         v = vals(k.numel())
@@ -717,13 +845,12 @@ def _check_kv(dev, errs) -> None:
         got = gkv.global_sort_kv_tiles(k, v, tile=tile)
         torch.cuda.synchronize()
         launched = (skv.LAUNCHES - before[0], gkv.LAUNCHES - before[1])
-        err = _kv_err(got, gkv.global_sort_kv_ref(k, v))
-        errs["sort_kv_tiles"] = max(errs["sort_kv_tiles"], err)
+        want = gkv.global_sort_kv_ref(k, v)
+        err = max(_err(got[0], want[0]), _err(got[1], want[1]))
         errs["global_sort_kv_tiles"] = max(errs["global_sort_kv_tiles"], err)
-        print(f"kernel: K7 on {case} ({k.numel()} pairs): launches K7a "
-              f"{launched[0]}, K7b {launched[1]}, max_abs_err={err}")
-        _require(not err and launched[0] == 1
-                 and launched[1] == int(k.numel() > gkv.GSORT_KV_BLOCK),
+        print(f"kernel: K7 on {case} ({k.numel()} pairs): {launched[1]} "
+              f"launch, max_abs_err={err}")
+        _require(not err and launched == (0, 1),
                  f"K7 differs from its plain version on {case}")
     k, v = dup[:8 * tile], vals(8 * tile)
     for alternate in (False, True):
@@ -782,58 +909,63 @@ def _wisconsin(dev, card, errs, times) -> dict:
         conf = parse_conf(f"{WISCONSIN_CONFS}{name}.conf")
         run_multijoin(conf, device=dev)            # first run, not reported
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
         res = {}
         counts = _run_path(
             f"wisconsin {name}",
             lambda: res.setdefault("r", run_multijoin(conf, device=dev)
                                    ).to_json_line(),
-            {"sort_kv_tiles": int(kv), "global_sort_kv_tiles": int(kv)},
-            card)
+            {"global_sort_kv_tiles": int(kv)}, card)
         peak = torch.cuda.max_memory_allocated()
         r = res.pop("r")
-        k7 = (counts["sort_kv_tiles"], counts["global_sort_kv_tiles"])
+        k7 = counts["global_sort_kv_tiles"]
         rows_ok = r.output_rows == conf["probe"]["relation-size"]
         got = _pairs(r.output.column(1), r.output.column(2))
         del r
         match = torch.equal(got, _expected_pairs(conf, dev, cache))
         del got
-        print(f"path: wisconsin {name}: K7a {k7[0]}, K7b {k7[1]} launches; "
-              f"peak device memory {peak} bytes ({peak / 2**30:.3f} GiB); "
-              f"output equal to the plain join as a multiset: {match} "
-              f"[{card}]")
-        _require(rows_ok and match and (min(k7) > 0 if kv else max(k7) == 0),
+        print(f"path: wisconsin {name}: K7 {k7} launches; peak device "
+              f"memory {peak} bytes ({peak / 2**30:.3f} GiB); output equal "
+              f"to the plain join as a multiset: {match} [{card}]")
+        _require(rows_ok and match and counts["sort_kv_tiles"] == 0
+                 and (k7 > 0 if kv else k7 == 0),
                  f"wisconsin {name}: output or K7 launches wrong")
         for k, v in counts.items():
             total[k] += v
+        if kv:
+            _profile(f"wisconsin {name} (generation included)",
+                     lambda: run_multijoin(conf, device=dev), card)
         torch.cuda.empty_cache()
     del cache
-    _require(all(total[k] for k in ("sort_kv_tiles", "global_sort_kv_tiles")),
-             "no conf launched K7")
+    _require(total["global_sort_kv_tiles"] > 0, "no conf launched K7")
 
+    # K7 at the probe split's shape, exactly; then K7a, the TPU's phase A,
+    # which no path runs any more: its launches here are reported apart
     t, pay = _kv_split_shape(dev)
-    n = t.numel()
-    block = gkv.GSORT_KV_BLOCK
-    what = f"2^{n.bit_length() - 1} independent probe split"
-    for name, kernel_fn, plain_fn in (
-            ("sort_kv_tiles",
-             lambda: skv.sort_kv_tiles(t, pay, tile=block, alternate=True),
-             lambda: skv.sort_kv_tiles_ref(t, pay, tile=block,
-                                           alternate=True)),
-            ("global_sort_kv_tiles",
-             lambda: gkv.global_sort_kv_tiles(t, pay, tile=wpart.KV_TILE),
-             lambda: gkv.global_sort_kv_ref(t, pay))):
-        got, want = kernel_fn(), plain_fn()
-        err = _kv_err(got, want,
-                      block=block if name == "sort_kv_tiles" else None)
-        errs[name] = max(errs[name], err)
-        _require(not err, f"{name} differs from its plain version at {what}")
-        del got, want
-        ms = _events_ms(kernel_fn, 3)
-        plain_ms = _events_ms(plain_fn, 3)
-        times[name] = (ms, plain_ms)
-        print(f"kernel times: {name} at {what}: {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, max_abs_err={err} [{card}]")
+    what = f"2^{t.numel().bit_length() - 1} independent probe split"
+    _time_pair("global_sort_kv_tiles", what,
+               lambda: gkv.global_sort_kv_tiles(t, pay, tile=wpart.KV_TILE),
+               lambda: gkv.global_sort_kv_ref(t, pay), errs, times, card,
+               (t, pay), reps=3, library_is_plain=True)
+    block = skv.MAX_TILE
+    before = skv.LAUNCHES
+    got = skv.sort_kv_tiles(t, pay, tile=block, alternate=True)
+    want = skv.sort_kv_tiles_ref(t, pay, tile=block, alternate=True)
+    err = _kv_err(got, want, block=block)
+    errs["sort_kv_tiles"] = max(errs["sort_kv_tiles"], err)
+    _require(not err, f"sort_kv_tiles differs from its plain version at {what}")
+    bound = _bound_ms((t, pay), got)
+    del got, want
+    ms = _events_ms(lambda: skv.sort_kv_tiles(t, pay, tile=block,
+                                              alternate=True), 3)
+    plain_ms = _events_ms(lambda: skv.sort_kv_tiles_ref(t, pay, tile=block,
+                                                        alternate=True), 3)
+    times["sort_kv_tiles"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                  library_ms=None,
+                                  kernel_phase_launches=skv.LAUNCHES - before)
+    print(f"kernel times: sort_kv_tiles at {what}, {block}-pair blocks: "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library none, bound "
+          f"{bound:.4f} ms, max_abs_err={err}, "
+          f"{skv.LAUNCHES - before} launches [{card}]")
     del t, pay
     torch.cuda.empty_cache()
     return total
@@ -943,6 +1075,7 @@ def main() -> int:
           f"max_abs_err={err}")
     _require(not err, "K1 differs from its plain version at 2^27")
     max_err = max(max_err, err)
+    k1_bound = _bound_ms(args, got)
     del got, want
     k1_ms = _events_ms(lambda: fsc.fused_sort_count(*args, **kw), 20)
     plain_ms = _events_ms(lambda: fsc.fused_sort_count_ref(*args, **kw),
@@ -950,7 +1083,8 @@ def main() -> int:
     join_ms = _events_ms(lambda: bb.enqueue_banded_join(
         rkeys, skeys, tile=TILE, locality_window=WINDOW, unique_both=True,
         s2d=s2d), 10)
-    print(f"times: K1 {k1_ms:.4f} ms, plain {plain_ms:.4f} ms, whole device "
+    print(f"times: K1 {k1_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{k1_bound:.4f} ms, whole device "
           f"chain {join_ms:.4f} ms (glue {join_ms - k1_ms:.4f} ms) at "
           f"2^{LOG2_N}, tile {TILE} [{card}]")
     del args, r_flat, row_off, rows_needed, rkeys, skeys, s2d
@@ -962,7 +1096,8 @@ def main() -> int:
           f"[{card}; {_smi('clocks.sm,power.draw,temperature.gpu')}]")
 
     errs["fused_sort_count"] = max_err
-    times = {"fused_sort_count": (k1_ms, plain_ms)}
+    times = {"fused_sort_count": dict(ms=k1_ms, plain_ms=plain_ms,
+                                      bound_ms=k1_bound, library_ms=None)}
 
     # 6-7. every other path at 2^27, then K2-K5 at their paths' shapes
     counts = _paths(dev, card, errs, times)
@@ -974,12 +1109,16 @@ def main() -> int:
         for k, v in more.items():
             counts[k] += v
     for name in KERNELS:
-        _require(counts[name] > 0, f"no path launched {name}")
+        if name in OFF_PATH:
+            _require(counts[name] == 0 and
+                     times[name]["kernel_phase_launches"] > 0,
+                     f"{name} ran on a path or not at all ({OFF_PATH[name]})")
+        else:
+            _require(counts[name] > 0, f"no path launched {name}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": CSRC + src,
         "replaces": replaces, "launches": counts[name],
-        "max_abs_err": errs[name], "ms": times[name][0],
-        "plain_ms": times[name][1]}
+        "max_abs_err": errs[name], **times[name], "bound_by": "bytes"}
         for name, (_, src, replaces) in KERNELS.items()]}))
     print(f"device: {card}")
     print(json.dumps({"ok": True, "device": {

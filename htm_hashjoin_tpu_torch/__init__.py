@@ -6,10 +6,12 @@ piece is tested against.  It covers the banded engine (the build-only
 pipeline and every build+probe plan, with its abort -> retry, repair and
 replan paths), the planner and its HTM_ADAPT dial, the htm, radix and
 adaptive joins (HTM_SWITCH), the multipass radix partition, the
-generators and the CLI (``python -m htm_hashjoin_tpu_torch.cli``), through
-six hand-written CUDA kernels (``csrc/*.cu``: K1 fused sort + count, K2
-tile sort, K3 global sort, K4 general count, K5 narrow count, K6 radix
-scatter) on CUDA tensors and their plain torch versions on CPU tensors.
+generators, the CLI (``python -m htm_hashjoin_tpu_torch.cli``) and the
+Wisconsin multijoin, through hand-written CUDA kernels (``csrc/*.cu``: K1
+fused sort + count, K2 tile sort, K4 general count, K5 narrow count, K6
+radix scatter, K7a the TPU's key-value phase A, and one LSD radix sort for
+K3, the global sort, and K7, the key-value global sort) on CUDA tensors
+and their plain torch versions on CPU tensors.
 
 Importing the package imports torch only: no jax, no kernel build (the
 kernels are compiled by nvcc at their first launch).

@@ -50,8 +50,8 @@ SMALL_TILE = 2048
 
 
 def _megakernel_sorter(n: int):
-    """int32 global sort through K2 phase A + K3; MAXI32 padding sorts to
-    the tail and is sliced off."""
+    """int32 global sort through K3; MAXI32 padding sorts to the tail and
+    is sliced off."""
     def sorter(keys):
         padded = to_tiles_pow2(keys, DEFAULT_TILE)
         return global_sort_tiles(padded, tile=DEFAULT_TILE)[:n]

@@ -102,17 +102,19 @@ def load_library() -> ctypes.CDLL:
     signatures = {
         "htm_fused_sort_count": [p, p, i64, p, p, p, p, p, p, i, i, i, i, p],
         "htm_sort_tiles": [p, p, p, i, i, i, i, p],
-        "htm_global_sort_levels": [p, i64, i, p],
+        "htm_radix_sort_keys": [p, p, p, p, i64, i64, p],
         "htm_banded_count": [p, p, i64, p, p, p, p, i, i, p],
         "htm_banded_count_narrow": [p, p, i64, p, p, p, p, i, i, p],
         "htm_scatter_tiles": [p, p, p, p, i64, i, i, i, p],
         "htm_sort_kv_tiles": [p, p, p, p, i, i, i, p],
-        "htm_global_sort_kv_levels": [p, p, i64, i, i, p],
+        "htm_radix_sort_pairs": [p, p, p, p, p, p, p, i64, i64, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = i
+    lib.htm_radix_sort_scratch_words.argtypes = [i64]
+    lib.htm_radix_sort_scratch_words.restype = i64
     lib.htm_cuda_error_string.argtypes = [i]
     lib.htm_cuda_error_string.restype = ctypes.c_char_p
     return lib

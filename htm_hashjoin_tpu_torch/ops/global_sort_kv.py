@@ -3,31 +3,26 @@
 Counterpart of ``htm_hashjoin_tpu/ops/pallas/join_kernels.py:
 global_sort_kv_tiles``, the Wisconsin partition split's sort
 (``wisconsin/partitioner.py:_reorder_rot2_kv``).  On CUDA tensors
-``global_sort_kv_tiles`` runs the bitonic network in two hand-written
-kernels: K7a (``sort_kv_tiles``, ``csrc/sort_kv_tiles.cu``) sorts blocks of
-up to ``GSORT_KV_BLOCK`` pairs in alternating directions (phase A), then K7b
-(``csrc/global_sort_kv.cu``) runs every longer level in place, up to
-``GSORT_KV_BITS`` cross-block stages a pass.  On CPU tensors it runs the
-plain version, a stable ``torch.sort`` of the keys and a gather of the
-values; any other device raises, and nothing falls back.
+``global_sort_kv_tiles`` runs the hand-written stable LSD radix sort with
+the value riding (``csrc/radix_sort.cu`` through ``radix_sort.sort_pairs``:
+one histogram launch and four scatter passes, one count in ``LAUNCHES`` a
+sort).  On CPU tensors it runs the plain version, a stable ``torch.sort``
+of the keys and a gather of the values; any other device raises, and
+nothing falls back.
 
-The network is not stable on equal keys, as on the TPU
-(``join_kernels.py:732-734``): the port is held to the sorted keys, and to
-the values as a multiset within each key.
+Both are stable, so they agree bit for bit.  The TPU's bitonic network is
+not stable on equal keys (``join_kernels.py:732-734``): against it the port
+is held to the sorted keys, and to the values as a multiset within each
+key.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _args
-from .sort_kv_tiles import sort_kv_tiles
+from . import _args, radix_sort
 
-GSORT_KV_BLOCK = 16384   # phase A's block: the most pairs K7a holds
-GSORT_KV_BITS = 3        # cross-block stages a K7b pass holds, as the TPU's
-                         # GSORT_KV_BITS (join_kernels.py:489)
-
-LAUNCHES = 0   # K7b launches (each runs all levels past phase A)
+LAUNCHES = 0   # kernel sorts by global_sort_kv_tiles (the plain path adds none)
 
 
 def global_sort_kv_ref(keys: torch.Tensor, vals: torch.Tensor):
@@ -52,24 +47,12 @@ def _check(keys, vals, tile):
 def global_sort_kv_tiles(keys: torch.Tensor, vals: torch.Tensor, *,
                          tile: int):
     """Sort (``keys``, ``vals``) ((2^k * tile,) int32 each; pad keys with
-    MAXI32, values with anything) by key ascending, each value moving with
-    its key.  Returns new ``(keys, vals)`` tensors."""
+    MAXI32, values with anything) by key ascending, stably, each value
+    moving with its key.  Returns new ``(keys, vals)`` tensors."""
+    global LAUNCHES
     dev = _check(keys, vals, tile)
     if not _args.runs_kernel("global_sort_kv_tiles", dev):
         return global_sort_kv_ref(keys, vals)
-    n = keys.numel()
-    block = min(n, GSORT_KV_BLOCK)
-    keys_out, vals_out = sort_kv_tiles(keys, vals, tile=block,
-                                       alternate=n > block)
-    if n > block:
-        _launch(keys_out, vals_out, n, block)
-    return keys_out, vals_out
-
-
-def _launch(keys, vals, n, block):
-    global LAUNCHES
-    _args.aligned("global_sort_kv_tiles", keys=keys, vals=vals)
-    _args.launch("global_sort_kv_tiles", "htm_global_sort_kv_levels",
-                 keys.device, keys.data_ptr(), vals.data_ptr(), n, block,
-                 GSORT_KV_BITS)
+    out = radix_sort.sort_pairs("global_sort_kv_tiles", keys, vals)
     LAUNCHES += 1
+    return out

@@ -1,4 +1,5 @@
-"""K7a: per-block key-value sort, phase A of the key-value global sort.
+"""K7a: per-block key-value sort, phase A of the TPU's key-value global
+sort.
 
 Counterpart of ``htm_hashjoin_tpu/ops/pallas/join_kernels.py:
 _sort_kv_tiles_jit``.  ``sort_kv_tiles`` runs the hand-written CUDA kernel
@@ -6,7 +7,8 @@ _sort_kv_tiles_jit``.  ``sort_kv_tiles`` runs the hand-written CUDA kernel
 ``sort_kv_tiles_ref`` on CPU tensors; it raises on any other device and
 never falls back from one to the other.  The kernel is not stable on equal
 keys (the plain version is): the two agree on the keys, and on the values
-as a multiset within each key of each tile.
+as a multiset within each key of each tile.  The port's key-value global
+sort (K7, a radix sort) needs no phase A, so no join path runs this kernel.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from . import _args
 # Shared memory holds a tile of keys and one of values (227 KB a block):
 # up to 16384 pairs.
 KERNEL_TILES = (2048, 4096, 8192, 16384)
+MAX_TILE = KERNEL_TILES[-1]   # the largest block, the one chip_smoke.py times
 
 LAUNCHES = 0   # kernel launches by sort_kv_tiles (the plain path adds none)
 

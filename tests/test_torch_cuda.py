@@ -1,9 +1,10 @@
 """The CUDA kernels (K1 fused sort + count, K2 tile sort, K3 global sort,
-K4 general count, K5 narrow count, K6 radix scatter) against their plain
-torch versions on the card, exactly, the join plans that run them, the
-multipass radix join and one CLI run per path the planner chooses; K7a and
-K7 (the key-value global sort) by the multiset rule, the Wisconsin kv split
-and three multijoin confs at a cut scale.
+K4 general count, K5 narrow count, K6 radix scatter, K7 key-value global
+sort) against their plain torch versions on the card, exactly, the join
+plans that run them, the multipass radix join and one CLI run per path the
+planner chooses; K7a (the TPU's kv phase A, unstable) by the multiset rule
+within each tile, the Wisconsin kv split and three multijoin confs at a cut
+scale.
 
 Needs a CUDA device and nvcc; elsewhere every test skips.  The file imports
 no jax, so it runs where jax is absent:
@@ -27,12 +28,14 @@ from htm_hashjoin_tpu_torch.data.generators import (build_relations,
                                                     sorted_keys, zipf_keys)
 from htm_hashjoin_tpu_torch.joins import banded_backend as bb
 from htm_hashjoin_tpu_torch.joins.radix import radix_join
+from htm_hashjoin_tpu_torch.ops import _build
 from htm_hashjoin_tpu_torch.ops import banded_count as bc
 from htm_hashjoin_tpu_torch.ops import banded_count_narrow as bcn
 from htm_hashjoin_tpu_torch.ops import fused_sort_count as fsc
 from htm_hashjoin_tpu_torch.ops import global_sort as gs
 from htm_hashjoin_tpu_torch.ops import global_sort_kv as gkv
 from htm_hashjoin_tpu_torch.ops import radix_kernels as rk
+from htm_hashjoin_tpu_torch.ops import radix_sort as rs
 from htm_hashjoin_tpu_torch.ops import scatter_tiles as sct
 from htm_hashjoin_tpu_torch.ops import sort_kv_tiles as skv
 from htm_hashjoin_tpu_torch.ops import sort_tiles as st
@@ -120,18 +123,85 @@ def test_k2_matches_plain(dev, tile, method, passes, kind):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+SORT_KINDS = ["permutation", "duplicates", "negatives and INT32_MIN",
+              "all equal", "two values", "16 copies a key",
+              "rotation-packed"]
+
+
+def sort_keys_of(kind, n, dev, seed=0):
+    """Keys for the K3 and K7 tests: the edge cases of an LSD radix sort
+    (sign flip, constant and skewed digits, the split's packed keys)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    if kind == "permutation":
+        return shuffled_keys(n, seed + 1, dev)
+    if kind == "duplicates":
+        return duplicates(n, dev, seed + 2)
+    if kind == "negatives and INT32_MIN":
+        keys = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
+                             device=dev, dtype=torch.int32)
+        keys[::97] = -2**31
+        keys[1::89] = MAXI32
+        return keys
+    if kind == "all equal":
+        return torch.full((n,), -7, dtype=torch.int32, device=dev)
+    if kind == "two values":
+        return torch.where(torch.rand(n, generator=gen, device=dev) < 0.5,
+                           3, -5).to(torch.int32)
+    if kind == "16 copies a key":
+        return torch.randint(0, max(1, n // 16), (n,), generator=gen,
+                             device=dev, dtype=torch.int32)
+    from htm_hashjoin_tpu_torch.wisconsin import partitioner as wpart
+    keys = torch.randint(1, 1 << 24, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    shard = (torch.arange(n, device=dev, dtype=torch.int32) // 4096) % 8
+    return wpart._rot_pack(keys, shard, 1, 17, 6, 19, 3, n)
+
+
 @pytest.mark.parametrize("n", [2048, 6000, 32768, 100_000, (1 << 20) + 5])
-@pytest.mark.parametrize("kind", ["permutation", "duplicates"])
+@pytest.mark.parametrize("kind", SORT_KINDS)
 def test_k3_matches_plain(dev, n, kind):
-    keys = (shuffled_keys(n, 1, dev) if kind == "permutation"
-            else duplicates(n, dev, 2))
+    keys = sort_keys_of(kind, n, dev)
     padded = bb.to_tiles_pow2(keys, 2048)
     before = gs.LAUNCHES
     got = gs.global_sort_tiles(padded, tile=2048)
     torch.cuda.synchronize()
-    assert gs.LAUNCHES == before + (padded.numel() > gs.GSORT_BLOCK)
+    assert gs.LAUNCHES == before + 1
     assert torch.equal(got, gs.global_sort_ref(padded))
     assert torch.equal(got[:n], torch.sort(keys).values)
+
+
+@pytest.mark.parametrize("n", [1, 3, 6143, 6145, 12345, (1 << 20) + 77])
+def test_radix_sort_takes_any_length(dev, n):
+    """The kernel masks a ragged last tile; values follow stably."""
+    keys = duplicates(n, dev, 9) - n // 14
+    vals = torch.arange(n, dtype=torch.int32, device=dev)
+    assert torch.equal(rs.sort_keys("test", keys),
+                       torch.sort(keys, stable=True).values)
+    got_k, got_v = rs.sort_pairs("test", keys, vals)
+    want_k, order = torch.sort(keys, stable=True)
+    assert torch.equal(got_k, want_k) and torch.equal(got_v, order.int())
+
+
+def test_radix_scratch_follows_the_model_tile(dev):
+    lib = _build.load_library()
+    for n in (1, rs.TILE_KEYS, rs.TILE_KEYS + 1, 1 << 20):
+        tiles = -(-n // rs.TILE_KEYS)
+        assert lib.htm_radix_sort_scratch_words(n) == \
+            rs.PASSES * rs.BINS + rs.PASSES + rs.PASSES * tiles * rs.BINS
+
+
+def test_sorts_of_two_values_at_2_to_the_25(dev):
+    """Skewed digits: every pass sees two digit values (one in the first
+    three), as the heavy hitter's tagged count does."""
+    n = 1 << 25
+    keys = sort_keys_of("two values", n, dev, 4)
+    vals = torch.arange(n, dtype=torch.int32, device=dev)
+    assert torch.equal(gs.global_sort_tiles(keys, tile=8192),
+                       gs.global_sort_ref(keys))
+    got = gkv.global_sort_kv_tiles(keys, vals, tile=8192)
+    want = gkv.global_sort_kv_ref(keys, vals)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def count_inputs(dev, tile, n_tiles=6):
@@ -327,24 +397,21 @@ def kv_pairs(keys, vals):
 
 @pytest.mark.parametrize("tile", [2048, 8192, 16384])
 @pytest.mark.parametrize("n_tiles", [1, 2, 8, 64])
-@pytest.mark.parametrize("kind", ["permutation", "duplicates", "padded"])
+@pytest.mark.parametrize("kind", SORT_KINDS + ["padded"])
 def test_k7_matches_plain(dev, tile, n_tiles, kind):
-    """K7a + K7b against the stable sort, by the multiset rule: keys
-    equal, values equal as a multiset within each key."""
+    """The radix sort is stable, so it equals the plain stable sort + gather
+    bit for bit; K7a is not launched."""
     n = tile * n_tiles
-    keys = (shuffled_keys(n, 5, dev) if kind == "permutation"
-            else duplicates(n, dev, 6))
+    keys = sort_keys_of("duplicates" if kind == "padded" else kind, n, dev, 5)
     if kind == "padded":
         keys[n - 999:] = MAXI32
     vals = duplicates(n, dev, 7) - n // 14
     before = (skv.LAUNCHES, gkv.LAUNCHES)
     got = gkv.global_sort_kv_tiles(keys, vals, tile=tile)
     torch.cuda.synchronize()
-    assert skv.LAUNCHES == before[0] + 1
-    assert gkv.LAUNCHES == before[1] + (n > gkv.GSORT_KV_BLOCK)
+    assert (skv.LAUNCHES, gkv.LAUNCHES) == (before[0], before[1] + 1)
     want = gkv.global_sort_kv_ref(keys, vals)
-    assert torch.equal(got[0], want[0])
-    assert torch.equal(kv_pairs(*got), kv_pairs(*want))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("tile", skv.KERNEL_TILES)

@@ -85,13 +85,6 @@ def test_plain_sort_is_stable_and_gathers_values():
     assert torch.equal(got_k, want_k) and torch.equal(got_v, order.int())
 
 
-def test_group_bits_port_the_constant():
-    """The TPU groups GSORT_KV_BITS = 3 cross-tile stages a pass
-    (join_kernels.py:489; its comment at :485-487 says 2, which is stale);
-    the port's K7b takes its group width from the same constant."""
-    assert gkv.GSORT_KV_BITS == jk.GSORT_KV_BITS == 3
-
-
 @pytest.mark.parametrize("bad", ["tiles", "length", "dtype", "tile"])
 def test_bad_arguments_raise(bad):
     keys, vals = (torch.zeros(3 * TILE, dtype=torch.int32) if bad == "tiles"
