@@ -8,9 +8,15 @@ Phases, one line each:
   3. kernel   - K1 (fused_sort_count) against its plain torch version on
                 the card, on cases of a few tiles, exactly (integer outputs;
                 counts only on tiles with zero inversions); then K2 (all four
-                sorters), K3 (the radix sort, on negatives with INT32_MIN,
-                constant and two-valued keys too), K4 and K5 against theirs,
-                exactly;
+                sorters, blocks of 2, 32 and 2048 keys, on negatives with
+                INT32_MIN and a tile of MAXI32 only too), K3 (the radix sort,
+                on negatives with INT32_MIN, constant and two-valued keys
+                too), K4 (bands of 0, 1 and many chunks, a band past the end
+                of S, the 2^37-pair heavy hitter, and hot keys over many
+                chunks: one key, two keys meeting inside a chunk, a run
+                ending mid-chunk, a tile of 2^14 chunks) and K5 against
+                theirs, exactly; K3 and K7 at 2^29 + 1 keys and pairs, past
+                the old 2^30-key cap, exactly, then freed;
   4. main     - the headline join, 2^27 locality build + 2^27 sorted probe,
                 through banded_join_pipelined with bench.py's asserts and a
                 count of K1 launches; then the abort -> bitonic retry at 2^24;
@@ -22,20 +28,23 @@ Phases, one line each:
                 repair, the heavy hitter's tagged count; exact answers, each
                 kernel's launches (counts set to 0 just before each path, read
                 just after), the wall time and the peak device memory;
-     profile  - each path that sorts with K3 or K7 (here, in the CLI
-                phase with its relations already on the card, and once per
-                Wisconsin conf that splits) again: walls, then one call under
+     profile  - each path that sorts with K2, K3 or K7 or counts with K4
+                (here, the multipass joins, in the CLI phase with its
+                relations already on the card, and once per Wisconsin conf
+                that splits) again: walls, then one call under
                 torch.profiler (busy, its largest kernels, idle share);
   7. kernel times - K2-K5 at their paths' shapes against their plain
                 versions (held equal there too) and, for K2 and K3, against
-                one torch.sort call;
+                one torch.sort call; K4 also at the skewed probe's repair
+                shape (printed, not reported);
   8. radix      - K6 against its plain version on cases of a few tiles
                 (fanout 128 at tile 8192, empty runs, runs of many rows,
                 three passes), exactly; the multipass radix join at 2^27
                 (pk R x sorted S, 14 bits in two passes of 7) through
                 radix_join, exact, with two K6 launches and its peak device
                 memory, then build-only; K6 against its plain version at the
-                2^27 pass-1 and pass-2 shapes, timed;
+                2^27 pass-1 and pass-2 shapes, timed; K2 at the join's final
+                sort, on K6's pass-2 output (printed, not reported);
   9. cli        - the CLI in-process (cli.main) at --rSize 2^27, one line per
                 path the planner chooses: adaptive -> htm (K1), adaptive ->
                 radix on the engine's sort plan and on the sort route (held
@@ -260,19 +269,25 @@ def _check_other_kernels(dev, errs: dict) -> None:
     """K2 (four sorters), K3, K4 and K5 against their plain versions on
     cases of a few tiles, exactly."""
     n = 3 * TILE - 77
+    padding = local_shuffled_keys(n, 64, 6, dev)
+    padding[TILE:2 * TILE] = MAXI32
     cases = {"displaced w64, padded last tile":
              bb.to_tiles(local_shuffled_keys(n, 64, 5, dev), TILE),
              "duplicates, padded last tile":
-             bb.to_tiles(_duplicates(n, dev, 1), TILE)}
+             bb.to_tiles(_duplicates(n, dev, 1), TILE),
+             "negatives and INT32_MIN, padded last tile":
+             bb.to_tiles(_full_range(n, dev, 7), TILE),
+             "a tile of MAXI32 only": bb.to_tiles(padding, TILE)}
     for case, keys in cases.items():
         for method, passes in (("bitonic", 1), ("bitonic_alt", 1),
-                               ("blocks", 16), ("oddeven", 4)):
+                               ("blocks", 16), ("oddeven", 4), ("blocks", 1),
+                               ("blocks", 600)):
             kw = dict(tile=TILE, method=method, passes=passes)
             got = st.sort_tiles(keys, **kw)
             want = st.sort_tiles_ref(keys, **kw)
             err = max(_err(got[0], want[0]), _err(got[1], want[1]))
             errs["sort_tiles"] = max(errs["sort_tiles"], err)
-            print(f"kernel: K2 {method} on {case}: inversions="
+            print(f"kernel: K2 {method} passes={passes} on {case}: inversions="
                   f"{int(want[1][:, 2].sum())}, max_abs_err={err}")
             _require(not err, f"K2 {method} differs from its plain version")
     for n in (4 * TILE + 77, (1 << 20) + 5):
@@ -317,6 +332,29 @@ def _check_other_kernels(dev, errs: dict) -> None:
              "K4 miscounts the heavy hitter")
     errs["banded_count"] = max(errs["banded_count"], err, err_h)
     del heavy_s
+    for kind in HEAVY_BANDS:
+        hot_r, hot_s = _heavy_band(kind, dev)
+        hot_flat = bb.to_tiles(hot_r, TILE)
+        hot_pad = bb.prepare_probe_side(hot_s, TILE)
+        mins, maxs, _ = st.tile_stats(hot_flat, TILE)
+        offs, rows = bb._rows(*bb._slice_offsets(hot_s, mins, maxs))
+        chunks = bb._n_chunks(rows, TILE)
+        chunks[7] = 0                             # a tile skipped
+        chunks[9] = hot_pad.numel() // TILE + 1   # a band past the end of S
+        got = bc.banded_count(hot_flat, hot_pad, offs, chunks, tile=TILE)
+        chunks[9] = 0
+        want = bc.banded_count_ref(hot_flat, hot_pad, offs, chunks,
+                                   tile=TILE)
+        status = torch.where(torch.arange(got[1].numel(), device=dev) == 9,
+                             2, 0).to(torch.int32)
+        err = max(_err(got[0], want[0]), _err(got[1], status))
+        errs["banded_count"] = max(errs["banded_count"], err)
+        print(f"kernel: K4 on {kind}: {hot_flat.numel() // TILE} tiles, "
+              f"chunks up to {int(chunks.max())}, matches="
+              f"{int(want[0].sum())}, status {got[1].tolist()[6:11]} (tiles "
+              f"6-10), max_abs_err={err}")
+        _require(not err, f"K4 differs from its plain version on {kind}")
+        del hot_r, hot_s, hot_flat, hot_pad
 
     args = (r_flat, s_pad, row_off, rows_needed)
     got = bcn.banded_count_narrow(*args, tile=TILE)
@@ -330,6 +368,83 @@ def _check_other_kernels(dev, errs: dict) -> None:
     _require(not err and not err_k1 and int(want[1].max()) == 1,
              "K5 differs from its plain version or from K1")
     errs["banded_count_narrow"] = max(errs["banded_count_narrow"], err)
+
+
+HEAVY_BANDS = ("one key over 40 chunks",
+               "two hot keys meeting inside a chunk",
+               "a run ending mid-chunk into distinct keys",
+               "one tile of 2^14 chunks among 64")
+
+
+def _heavy_band(kind, dev):
+    """(sorted R, sorted S) of 64 tiles of unique keys whose bands hold hot
+    keys of S (the repair's bands): one key over 40 chunks; two hot keys
+    whose runs meet inside a chunk, R holding 32 copies of each; a run
+    ending mid-chunk into distinct keys; one tile whose band is 2^14
+    chunks."""
+    n = 64 * TILE
+    r = torch.arange(1, n + 1, dtype=torch.int32, device=dev)
+    s = [r]
+
+    def run(count, key):
+        return torch.full((count,), key, dtype=torch.int32, device=dev)
+
+    if kind == HEAVY_BANDS[0]:
+        s.append(run(40 * TILE, 5000))
+    elif kind == HEAVY_BANDS[1]:
+        r = torch.sort(torch.cat([r[:n - 64], run(32, 5000),
+                                  run(32, 5001)])).values
+        s += [run(20 * TILE + 3001, 5000), run(9 * TILE + 77, 5001)]
+    elif kind == HEAVY_BANDS[2]:
+        s.append(run(17 * TILE + TILE // 3, 9000))
+    else:
+        s.append(run((1 << 14) * TILE, 3 * TILE + 5))
+    return r, torch.sort(torch.cat(s)).values
+
+
+def _check_big_sorts(dev, errs) -> None:
+    """K3 and K7 past the old 2^30-key cap: 2^29 + 1 keys (and pairs)
+    padded to 2^30, exactly against their plain versions; freed after."""
+    n = (1 << 29) + 1
+    padded = bb.to_tiles_pow2(_full_range(n, dev, 21), TILE)
+    got = gs.global_sort_tiles(padded, tile=TILE)
+    err = _err(got, gs.global_sort_ref(padded))
+    errs["global_sort_tiles"] = max(errs["global_sort_tiles"], err)
+    print(f"kernel: K3 on 2^29 + 1 keys (padded to {padded.numel()}): "
+          f"max_abs_err={err}")
+    _require(not err, "K3 differs from torch.sort at 2^29 + 1 keys")
+    del padded, got
+    keys = bb.to_tiles_pow2(_duplicates(n, dev, 22), TILE)
+    vals = torch.zeros_like(keys)
+    vals[:n] = torch.arange(n, dtype=torch.int32, device=dev)
+    got = gkv.global_sort_kv_tiles(keys, vals, tile=TILE)
+    want = gkv.global_sort_kv_ref(keys, vals)
+    del keys, vals
+    err = max(_err(got[0], want[0]), _err(got[1], want[1]))
+    errs["global_sort_kv_tiles"] = max(errs["global_sort_kv_tiles"], err)
+    print(f"kernel: K7 on 2^29 + 1 pairs (padded to {got[0].numel()}): "
+          f"max_abs_err={err}")
+    _require(not err, "K7 differs from its plain version at 2^29 + 1 pairs")
+    del got, want
+    torch.cuda.empty_cache()
+
+
+def _repair_inputs(r, s):
+    """K4's inputs in the skewed probe's batched repair, as
+    bb._overflow_tile_matches builds them: the tiles whose bands exceed the
+    inline budget, gathered, padded to a power-of-two count and sorted, with
+    their unbounded bands in the sorted S."""
+    s_sorted, s2d = bb.sort_probe_side(s, TILE)
+    r_sorted = gs.global_sort_tiles(bb.to_tiles_pow2(r, TILE), tile=TILE)
+    mins, maxs, _ = st.tile_stats(r_sorted, TILE)
+    row_off, rows_needed = bb._rows(*bb._slice_offsets(s_sorted, mins, maxs))
+    bad = torch.nonzero(bb._n_chunks(rows_needed, TILE)
+                        > bb.MAX_CHUNKS_DEFAULT).reshape(-1)
+    keys = r_sorted.view(-1, TILE)[bad].reshape(-1)
+    bad_sorted = gs.global_sort_tiles(bb.to_tiles_pow2(keys, TILE), tile=TILE)
+    mins, maxs, _ = st.tile_stats(bad_sorted, TILE)
+    row_off, rows_needed = bb._rows(*bb._slice_offsets(s_sorted, mins, maxs))
+    return bad_sorted, s2d, row_off, bb._n_chunks(rows_needed, TILE)
 
 
 def _run_path(name, fn, expect, card) -> dict:
@@ -354,10 +469,15 @@ def _run_path(name, fn, expect, card) -> dict:
     return counts
 
 
+# kernels whose device time every profile line gives, in the top four or not
+WATCHED = ("sort_tiles_kernel", "banded_count_kernel")
+
+
 def _profile(name, fn, card, reps=3) -> None:
     """Walls of ``reps`` more calls of a path (each ending in a
     synchronise), then one call under torch.profiler: device busy time (the
-    sum of its kernels, fills and copies), the four largest kernels, and
+    sum of its kernels, fills and copies), the four largest kernels (and
+    K2's and K4's, where the call ran them), and
     the idle share 1 - busy / the median unprofiled wall (the profiler's
     own cost stretches the profiled call's wall, so its share is printed
     beside, not used); and the peak device memory over these calls, the
@@ -387,6 +507,8 @@ def _profile(name, fn, card, reps=3) -> None:
     busy = sum(by_name.values())
     median = float(np.median(walls))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    top += [(k, by_name[k]) for k in WATCHED
+            if k in by_name and k not in dict(top)]
     print(f"profile: {name}: walls {', '.join(f'{w:.3f}' for w in walls)} "
           f"ms (median {median:.3f}); busy {busy:.3f} ms, idle "
           f"{100 * (1 - busy / median):.1f} % of the median wall; profiled "
@@ -452,6 +574,8 @@ def _paths(dev, card, errs, times) -> dict:
     _require(out.violations == 0 and not out.resorted
              and out.output_sum == out.input_sum == gauss,
              f"build-only locality: {out}")
+    _profile("build-only w16", lambda: bb.banded_build_pipelined(
+        r, tile=TILE, locality_window=WINDOW), card)
     r_flat = bb.to_tiles(r, TILE)
     kw = dict(tile=TILE, method="blocks", passes=WINDOW)
     _time_pair("sort_tiles", f"2^{LOG2_N} blocks w16",
@@ -470,6 +594,8 @@ def _paths(dev, card, errs, times) -> dict:
     out = res["out"]
     _require(out.output_sum == out.input_sum == gauss,
              f"build-only shuffled: {out}")
+    _profile("build-only shuffled", lambda: bb.banded_build_pipelined(
+        r, tile=TILE), card)
     kw = dict(tile=TILE, method="bitonic")
     _time_pair("sort_tiles", f"2^{LOG2_N} bitonic",
                lambda: st.sort_tiles(r, **kw),
@@ -491,6 +617,8 @@ def _paths(dev, card, errs, times) -> dict:
     _require(out.matches == n and out.overflow_tiles == 0
              and out.output_sum == out.input_sum == gauss,
              f"wide band: {out}")
+    _profile("wide band", lambda: bb.banded_join_pipelined(
+        r, s, tile=TILE, locality_window=4096, narrow=False, s2d=s2d), card)
     sorted_flat, stats = st.sort_tiles(r, tile=TILE, method="bitonic")
     row_off, rows_needed = bb._rows(*bb._slice_offsets(
         s, stats[:, 0], stats[:, 1]))
@@ -565,7 +693,15 @@ def _paths(dev, card, errs, times) -> dict:
              f"skewed probe: {out}")
     _profile("skewed probe", lambda: bb.banded_join_pipelined(
         r, s, tile=TILE, sort_s=True, presort=True), card)
+    args = _repair_inputs(r, s)
     del r, s
+    bad_tiles = args[0].numel() // TILE
+    _time_pair("banded_count", f"the skewed probe's repair ({bad_tiles} "
+               f"tiles, chunks {args[3].tolist()})",
+               lambda: bc.banded_count(*args, tile=TILE),
+               lambda: bc.banded_count_ref(*args, tile=TILE), errs, times,
+               card, args, keep=False)
+    del args
 
     # heavy hitter: 2^24 copies of one key a side, 2^48 pairs
     m = 1 << (LOG2_N - 3)
@@ -675,6 +811,7 @@ def _radix(dev, card, errs, times) -> dict:
              and counts["scatter_tiles"] == 2, f"multipass radix: {m}")
     for k, v in counts.items():
         total[k] += v
+    _profile("multipass radix join", lambda: radix_join(r, s, cfg), card)
     res = {}
     counts = _run_path(
         "multipass radix build-only (radix_join, no probe side)",
@@ -682,6 +819,8 @@ def _radix(dev, card, errs, times) -> dict:
         {"scatter_tiles": 2, "sort_tiles": 3}, card)
     _require(res["m"].inputSum == res["m"].outputSum == gauss
              and res["m"].totalMatches is None, f"build-only: {res['m']}")
+    _profile("multipass radix build-only", lambda: radix_join(r, None, cfg),
+             card)
     for k, v in counts.items():
         total[k] += v
     del s
@@ -714,7 +853,17 @@ def _radix(dev, card, errs, times) -> dict:
                lambda: sct.scatter_tiles(*args, **kw),
                lambda: sct.scatter_tiles_ref(*args, **kw), errs, times, card,
                args, reps=5, keep=False)
+    # K2 at the join's final sort: the pass-2 output, mostly MAXI32 padding
+    out = sct.scatter_tiles(*args, **kw)
     del args, sorted_flat, plan
+    n_out = out.numel() // TILE
+    n_pad = int((out.view(-1, TILE) == MAXI32).all(1).sum())
+    _time_pair("sort_tiles", f"the multipass final sort ({n_out} tiles, "
+               f"{n_pad} of MAXI32 only, {int((out != MAXI32).sum())} keys)",
+               lambda: st.sort_tiles(out, tile=TILE, method="bitonic"),
+               lambda: st.sort_tiles_ref(out, tile=TILE, method="bitonic"),
+               errs, times, card, (out,), reps=5, keep=False)
+    del out
     torch.cuda.empty_cache()
     return total
 
@@ -1026,6 +1175,7 @@ def main() -> int:
             _require(flagged > 0, "the 6000-copy run did not flag its tile")
     del cases, dup, dup_r, heavy_s
     _check_other_kernels(dev, errs)
+    _check_big_sorts(dev, errs)
 
     # 4. the main path at 2^27, counting K1 launches
     n = 1 << LOG2_N

@@ -1,7 +1,8 @@
 // Device code shared by the banded join's kernels (K1 fused sort + count,
 // K2 tile sort, K3 global sort, K4 general count, K5 narrow count) and the
 // key-value sort (K7a, K7b): the shared-memory sorting networks (keys only
-// and key-value), 16-byte tile copies, the band binary
+// and key-value; K1 and K7a), K2's register-resident tile sort, 16-byte
+// tile copies, the band binary
 // searches, block reductions, the per-tile stats row and the narrow-band
 // count with its exactness certificate.  One definition each, so the
 // kernels cannot drift apart on them (the JAX package's make_tile_stats_row
@@ -304,6 +305,381 @@ __device__ void narrow_count(const int* v, const int* band, int tile,
             (need <= rpt || (mx_pre < ovh_min && need <= rpt + kOvRows));
         *count = ok ? cnt : 0;
         *flag = in_range ? (ok ? 0 : 1) : 2;
+    }
+}
+
+// ---------------------------------------------------------------------------
+// The register-resident tile sort (K2).
+//
+// A block of P threads holds a T = E * P key tile in registers, E keys a
+// thread in the blocked layout: key i of the tile is x[i % E] of thread
+// i / E.  Index bits below log2(E) are a thread's registers, the next five
+// its lane, the rest its warp.  A compare-exchange stage pairs key i with
+// key i ^ M, the lower index (bit HB clear) keeping the smaller key; where
+// HB falls decides where the stage runs: in registers, across lanes with
+// __shfl_xor_sync, or, for warp bits only, through shared memory (each
+// thread stores its keys, one barrier, each reads its partners).  Shared
+// rows are padded by one word in 32, so the blocked stores and the
+// partners' loads of a warp hit 32 banks.  Every stage index is a template
+// argument, so every register index is known at compile time and no key
+// leaves the registers for local memory (stage_at picks the stage body at
+// run time).  The exact sorters stop the network at the warp's 32E keys and
+// merge the warps' runs along the merge path (merge_levels).
+
+__host__ __device__ constexpr int ilog2(int x) {
+    return x <= 1 ? 0 : 1 + ilog2(x / 2);
+}
+
+__device__ __forceinline__ int padded(int i) { return i + (i >> 5); }
+
+template <int E, int P>
+struct RegTile {
+    static constexpr int kT = E * P;
+    static constexpr int kLogE = ilog2(E);
+    static constexpr int kLogT = ilog2(kT);
+    static constexpr int kWarps = P / 32;
+    static constexpr int kPadded = kT + kT / 32;
+    // two buffers, used in turn, let a stage's stores follow the previous
+    // stage's loads without a second barrier; one where two do not fit
+    static constexpr bool kTwoBufs = 2 * kPadded * 4 <= 160 * 1024;
+    static constexpr int kSmemBytes = (kTwoBufs ? 2 : 1) * kPadded * 4;
+    static_assert(E >= 4 && (E & (E - 1)) == 0, "E: a power of two >= 4");
+    static_assert(P % 32 == 0 && P <= kMaxThreads, "P: whole warps");
+};
+
+// The shared buffer of the next exchange round (stores, barrier, loads).
+template <int E, int P>
+struct ShuffleBuf {
+    int* base;
+    int round;
+    __device__ __forceinline__ int* next() {
+        int* buf = base;
+        if (RegTile<E, P>::kTwoBufs) {
+            buf += (round & 1) * RegTile<E, P>::kPadded;
+        } else if (round) {
+            __syncthreads();   // the previous round's loads are done
+        }
+        ++round;
+        return buf;
+    }
+};
+
+// min(x, y) if keep_min, else max(x, y), as one compare and one select
+// (a direction known only at run time would otherwise cost a min, a max
+// and a select).
+__device__ __forceinline__ int keep_or_take(int x, int y, bool keep_min) {
+    return (y < x) == keep_min ? y : x;
+}
+
+// One stage over the blocked tile x: key i meets key i ^ M, and the one
+// whose bit HB is clear keeps the smaller key.  Keys at indices >= limit
+// take no part (limit is a multiple of 2 * HB, so no pair is split).
+template <int E, int P, int M, int HB>
+__device__ __forceinline__ void reg_stage(int (&x)[E], ShuffleBuf<E, P>& sh,
+                                          int limit) {
+    constexpr int kLogE = RegTile<E, P>::kLogE;
+    const int first = threadIdx.x * E;   // the index of x[0]
+    if constexpr (HB < E) {
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+            if ((j & HB) == 0 && first + j < limit) {
+                const int a = x[j];
+                const int b = x[j ^ M];
+                x[j] = min(a, b);
+                x[j ^ M] = max(a, b);
+            }
+        }
+    } else if constexpr (HB < 32 * E) {
+        constexpr int kLaneMask = M >> kLogE;
+        constexpr int kRegMask = M & (E - 1);
+        const bool keep_min = (threadIdx.x & (HB >> kLogE)) == 0;
+        const bool live = first < limit;   // a thread's keys are all in or out
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+            const int pj = j ^ kRegMask;
+            if (pj < j) continue;
+            // ya: the partner of key j; yb: the partner of key pj
+            const int ya = __shfl_xor_sync(0xffffffffu, x[pj], kLaneMask);
+            const int yb = pj == j ? ya
+                                   : __shfl_xor_sync(0xffffffffu, x[j], kLaneMask);
+            if (live) {
+                x[j] = keep_or_take(x[j], ya, keep_min);
+                if (pj != j) x[pj] = keep_or_take(x[pj], yb, keep_min);
+            }
+        }
+    } else {
+        int* buf = sh.next();
+#pragma unroll
+        for (int j = 0; j < E; ++j) buf[padded(first + j)] = x[j];
+        __syncthreads();
+        const bool keep_min = (first & HB) == 0;
+        if (first < limit) {
+#pragma unroll
+            for (int j = 0; j < E; ++j) {
+                x[j] = keep_or_take(x[j], buf[padded((first + j) ^ M)],
+                                    keep_min);
+            }
+        }
+    }
+}
+
+template <int E, int P, int D>
+__device__ __forceinline__ void half_cleaners(int (&x)[E], ShuffleBuf<E, P>& sh) {
+    if constexpr (D >= 1) {
+        reg_stage<E, P, D, D>(x, sh, RegTile<E, P>::kT);
+        half_cleaners<E, P, D / 2>(x, sh);
+    }
+}
+
+// The stage on bit `bit`: the mirror stage of level bit + 1 (key i meets
+// key i ^ (2^(bit+1) - 1)) or the half-cleaner (key i meets key i ^ 2^bit).
+// The bit is known only at run time; each of the 2 log2(T) stage bodies is
+// compiled once, with its register indices fixed, and the level loops of
+// "blocks" (whose levels depend on the window) stay loops.
+template <int E, int P, int B = 0>
+__device__ __forceinline__ void stage_at(int (&x)[E], ShuffleBuf<E, P>& sh,
+                                         int limit, int bit, bool mirror) {
+    if constexpr (B < RegTile<E, P>::kLogT) {
+        if (bit == B) {
+            if (mirror) {
+                reg_stage<E, P, (2 << B) - 1, 1 << B>(x, sh, limit);
+            } else {
+                reg_stage<E, P, 1 << B, 1 << B>(x, sh, limit);
+            }
+        } else {
+            stage_at<E, P, B + 1>(x, sh, limit, bit, mirror);
+        }
+    }
+}
+
+// Levels first..last (level L: k = 2^L) of the flip-form bitonic network
+// over the keys below limit: the mirror stage, then the half-cleaners k/4,
+// ..., 1; every exchange is ascending.  Levels 1..L sort every aligned
+// 2^L-key block; level L alone merges 2^L-key blocks whose halves are
+// sorted.
+template <int E, int P>
+__device__ void bitonic_levels(int (&x)[E], ShuffleBuf<E, P>& sh, int first,
+                               int last, int limit) {
+#pragma unroll 1
+    for (int level = first; level <= last; ++level) {
+        stage_at<E, P>(x, sh, limit, level - 1, true);
+#pragma unroll 1
+        for (int bit = level - 2; bit >= 0; --bit) {
+            stage_at<E, P>(x, sh, limit, bit, false);
+        }
+    }
+}
+
+// Levels first..last unrolled (each stage body inlined where it runs): for
+// the levels whose stages all stay inside a warp, no block barrier.
+template <int E, int P, int L, int kLast>
+__device__ __forceinline__ void bitonic_levels_unrolled(int (&x)[E],
+                                                        ShuffleBuf<E, P>& sh) {
+    if constexpr (L <= kLast) {
+        reg_stage<E, P, (1 << L) - 1, 1 << (L - 1)>(x, sh, RegTile<E, P>::kT);
+        half_cleaners<E, P, (1 << L) / 4>(x, sh);
+        bitonic_levels_unrolled<E, P, L + 1, kLast>(x, sh);
+    }
+}
+
+// Levels first..last by merging: every aligned 2^level-key block from its
+// two sorted halves, along the merge path.  The tile goes to shared memory
+// once a level (one barrier); thread t finds by binary search how many of
+// the merged block's first d = t*E mod 2^level keys come from the lower
+// half, then merges its E keys in registers, one shared load each, so the
+// tile stays blocked.  About three shared accesses a key a level, where a
+// bitonic level above the warp costs five shuffles and up to four shared
+// rounds a key.
+template <int E, int P>
+__device__ void merge_levels(int (&x)[E], ShuffleBuf<E, P>& sh, int first,
+                             int last) {
+    const int o = threadIdx.x * E;
+#pragma unroll 1
+    for (int level = first; level <= last; ++level) {
+        int* buf = sh.next();
+#pragma unroll
+        for (int j = 0; j < E; ++j) buf[padded(o + j)] = x[j];
+        __syncthreads();
+        const int m = 1 << (level - 1);
+        const int a0 = o & ~(2 * m - 1);   // the lower half; b0 the upper
+        const int b0 = a0 + m;
+        const int d = o - a0;
+        int lo = max(0, d - m), hi = min(d, m);
+        while (lo < hi) {
+            const int mid = (lo + hi) >> 1;
+            if (buf[padded(a0 + mid)] <= buf[padded(b0 + d - 1 - mid)]) {
+                lo = mid + 1;
+            } else {
+                hi = mid;
+            }
+        }
+        int i = lo, j = d - lo;
+        int a = i < m ? buf[padded(a0 + i)] : 0;
+        int b = j < m ? buf[padded(b0 + j)] : 0;
+#pragma unroll
+        for (int k = 0; k < E; ++k) {
+            const bool take_a = j >= m || (i < m && a <= b);
+            x[k] = take_a ? a : b;
+            i += take_a;
+            j += !take_a;
+            const bool more = take_a ? i < m : j < m;
+            const int next = more ? buf[padded(take_a ? a0 + i : b0 + j)] : 0;
+            a = take_a ? next : a;
+            b = take_a ? b : next;
+        }
+    }
+}
+
+// x[i] <- x[(i + shift) mod T], through shared memory.
+template <int E, int P>
+__device__ void rotate_keys(int (&x)[E], ShuffleBuf<E, P>& sh, int shift) {
+    constexpr int kT = RegTile<E, P>::kT;
+    const int first = threadIdx.x * E;
+    int* buf = sh.next();
+#pragma unroll
+    for (int j = 0; j < E; ++j) buf[padded(first + j)] = x[j];
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < E; ++j) x[j] = buf[padded((first + j + shift) & (kT - 1))];
+}
+
+// `passes` rounds of odd-even transposition, step for step as
+// odd_even_passes: the even phase and the odd phase's pairs inside a
+// thread run in registers; the odd pair across two threads takes one
+// shuffle, and across two warps a word of shared memory (one barrier a
+// round, the words used in turn).
+template <int E, int P>
+__device__ void odd_even_regs(int (&x)[E], int passes) {
+    __shared__ int edge[2][2][kMaxWarps];   // [round parity][first, last][warp]
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    for (int r = 0; r < passes; ++r) {
+#pragma unroll
+        for (int j = 0; j < E; j += 2) {
+            const int a = x[j], b = x[j + 1];
+            x[j] = min(a, b);
+            x[j + 1] = max(a, b);
+        }
+#pragma unroll
+        for (int j = 1; j + 1 < E; j += 2) {
+            const int a = x[j], b = x[j + 1];
+            x[j] = min(a, b);
+            x[j + 1] = max(a, b);
+        }
+        int next = __shfl_down_sync(0xffffffffu, x[0], 1);
+        int prev = __shfl_up_sync(0xffffffffu, x[E - 1], 1);
+        int (*e)[kMaxWarps] = edge[r & 1];
+        if (lane == 0) e[0][warp] = x[0];
+        if (lane == 31) e[1][warp] = x[E - 1];
+        __syncthreads();
+        if (lane == 31 && warp + 1 < RegTile<E, P>::kWarps) next = e[0][warp + 1];
+        if (lane == 0 && warp > 0) prev = e[1][warp - 1];
+        if (threadIdx.x + 1 < P) x[E - 1] = min(x[E - 1], next);
+        if (threadIdx.x > 0) x[0] = max(x[0], prev);
+    }
+}
+
+// One tile's sort by method, as sort_tile does it in shared memory, on the
+// blocked tile x.  buf: RegTile<E, P>::kSmemBytes of shared memory.
+// "bitonic" sorts each warp's 32E keys by the network, then merges them up
+// to the tile; "blocks" sorts the aligned b-blocks, then (b < T) turns
+// the tile by b/2 so the half-shifted blocks are aligned, merges all but
+// the last (the two end half-blocks) and turns it back.  Results are those
+// of sort_tile bit for bit: each block is sorted exactly, and the odd-even
+// rounds are the same steps.
+template <int E, int P>
+__device__ void sort_tile_regs(int (&x)[E], int* buf, int method, int passes) {
+    constexpr int kT = RegTile<E, P>::kT;
+    constexpr int kLogT = RegTile<E, P>::kLogT;
+    ShuffleBuf<E, P> sh{buf, 0};
+    if (method == kOddEven) {
+        odd_even_regs<E, P>(x, passes);
+    } else if (method == kBlocks) {
+        int lb = 1;
+        while ((1 << lb) < 2 * passes && lb < kLogT) ++lb;
+        bitonic_levels<E, P>(x, sh, 1, lb, kT);
+        if (lb < kLogT) {
+            const int b = 1 << lb;
+            rotate_keys<E, P>(x, sh, b / 2);
+            bitonic_levels<E, P>(x, sh, lb, lb, kT - b);
+            rotate_keys<E, P>(x, sh, kT - b / 2);
+        }
+    } else {   // within warps by the network, then by merging
+        constexpr int kWarpLevels = ilog2(32 * E);
+        bitonic_levels_unrolled<E, P, 1, kWarpLevels>(x, sh);
+        merge_levels<E, P>(x, sh, kWarpLevels + 1, kLogT);
+    }
+}
+
+// The stats row (as tile_stats_row) of the blocked tile x, from registers;
+// an adjacent pair across threads costs one shuffle, across warps a word
+// of shared memory.  Written to row[0..2] by thread 0.
+template <int E, int P>
+__device__ void tile_stats_row_regs(const int (&x)[E], bool count_inversions,
+                                    int* row) {
+    __shared__ int edge[kMaxWarps];
+    __shared__ int part[3][kMaxWarps];
+    constexpr int kWarps = RegTile<E, P>::kWarps;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    int mn = kMaxI32, mx = kMinI32, inv = 0;
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+        mn = min(mn, x[j]);
+        if (x[j] != kMaxI32) mx = max(mx, x[j]);
+    }
+    if (count_inversions) {
+#pragma unroll
+        for (int j = 0; j + 1 < E; ++j) inv += x[j] > x[j + 1];
+        int next = __shfl_down_sync(0xffffffffu, x[0], 1);
+        if (lane == 0) edge[warp] = x[0];
+        __syncthreads();
+        if (lane == 31 && warp + 1 < kWarps) next = edge[warp + 1];
+        if (threadIdx.x + 1 < P && x[E - 1] > next) ++inv;
+    }
+    mn = warp_min(mn);
+    mx = warp_max(mx);
+    inv = warp_sum(inv);
+    if (lane == 0) {
+        part[0][warp] = mn;
+        part[1][warp] = mx;
+        part[2][warp] = inv;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        for (int w = 1; w < kWarps; ++w) {
+            mn = min(mn, part[0][w]);
+            mx = max(mx, part[1][w]);
+            inv += part[2][w];
+        }
+        row[0] = mn;
+        row[1] = mx;
+        row[2] = inv;
+    }
+}
+
+// x = the E keys src[threadIdx.x * E, +E) (16-byte aligned), and back.
+template <int E>
+__device__ __forceinline__ void load_blocked(int (&x)[E],
+                                             const int* __restrict__ src) {
+    const int4* s4 = reinterpret_cast<const int4*>(src) + threadIdx.x * (E / 4);
+#pragma unroll
+    for (int q = 0; q < E / 4; ++q) {
+        const int4 v = s4[q];
+        x[4 * q] = v.x;
+        x[4 * q + 1] = v.y;
+        x[4 * q + 2] = v.z;
+        x[4 * q + 3] = v.w;
+    }
+}
+
+template <int E>
+__device__ __forceinline__ void store_blocked(int* __restrict__ dst,
+                                              const int (&x)[E]) {
+    int4* d4 = reinterpret_cast<int4*>(dst) + threadIdx.x * (E / 4);
+#pragma unroll
+    for (int q = 0; q < E / 4; ++q) {
+        d4[q] = make_int4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
     }
 }
 

@@ -50,10 +50,14 @@
 // three or four blocks an SM (with spills) did not hide them.  Skipping a
 // pass whose digit is constant and a wider digit are later work.
 //
-// Sizes: n < 2^30.  Offsets and counts are 32-bit unsigned, and a status
-// word keeps its count in 30 bits beside a 2-bit flag.  The last tile may
-// be ragged: its missing keys read as 0xFFFFFFFF (digit 255, last in every
-// pass) and are neither counted nor stored.
+// Sizes: n < 2^32.  Keys, offsets and digit counts are 32-bit unsigned
+// (a key's output index is computed modulo 2^32 and lands below n); a
+// look-back status word is 64 bits, a 2-bit flag above a 62-bit count,
+// published with st.release.gpu.u64 and read with ld.acquire.gpu.u64, so
+// one word carries flag and count together and no count is cut.  The
+// status takes 8 bytes per (pass, tile, digit): 1.4 GB at n = 2^30.  The
+// last tile may be ragged: its missing keys read as 0xFFFFFFFF (digit 255,
+// last in every pass) and are neither counted nor stored.
 
 #include "banded_common.cuh"
 
@@ -69,23 +73,26 @@ constexpr int kTileKeys = kSortThreads * kItems;
 constexpr int kHistThreads = 256;
 constexpr int kHistParts = 8;
 constexpr unsigned kSignFlip = 0x80000000u;
-constexpr unsigned kFlagAggregate = 1u << 30;  // the tile's own counts
-constexpr unsigned kFlagPrefix = 2u << 30;     // counts of tiles 0..t
-constexpr unsigned kFlagMask = kFlagAggregate | kFlagPrefix;
-constexpr unsigned kCountMask = kFlagAggregate - 1;
-constexpr long long kMaxKeys = 1LL << 30;
+// A look-back status word is 64 bits: a 2-bit flag above a 62-bit count.
+using Status = unsigned long long;
+constexpr Status kFlagAggregate = 1ull << 62;  // the tile's own counts
+constexpr Status kFlagPrefix = 2ull << 62;     // counts of tiles 0..t
+constexpr Status kFlagMask = kFlagAggregate | kFlagPrefix;
+constexpr Status kCountMask = kFlagAggregate - 1;
+constexpr long long kMaxKeys = 1LL << 32;      // keys and offsets are 32-bit
+constexpr int kStatusWords = sizeof(Status) / sizeof(unsigned);
 
 __device__ __forceinline__ unsigned digit(unsigned u, int shift) {
     return (u >> shift) & (kBins - 1);
 }
 
-__device__ __forceinline__ void store_release(unsigned* p, unsigned v) {
-    asm volatile("st.release.gpu.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+__device__ __forceinline__ void store_release(Status* p, Status v) {
+    asm volatile("st.release.gpu.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
 }
 
-__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
-    unsigned v;
-    asm volatile("ld.acquire.gpu.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+__device__ __forceinline__ Status load_acquire(const Status* p) {
+    Status v;
+    asm volatile("ld.acquire.gpu.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
     return v;
 }
 
@@ -168,7 +175,7 @@ template <bool kPairs>
 struct ScatterSmem {
     unsigned warp_count[kSortWarps][kBins];  // counts, then warp offsets
     unsigned digit_start[kBins];             // the digit's run in the tile
-    int delta[kBins];  // output index = delta[d] + staged position
+    unsigned delta[kBins];  // output index = delta[d] + staged position (mod 2^32)
     unsigned warp_sums[kSortWarps];
     unsigned tile;
     int keys[kTileKeys];
@@ -184,7 +191,7 @@ __global__ void __launch_bounds__(kSortThreads)
 radix_scatter(const int* __restrict__ keys_in, const int* __restrict__ vals_in,
               int* __restrict__ keys_out, int* __restrict__ vals_out,
               unsigned n, int shift, const unsigned* __restrict__ hist,
-              unsigned* __restrict__ status, unsigned* __restrict__ tile_counter) {
+              Status* __restrict__ status, unsigned* __restrict__ tile_counter) {
     extern __shared__ int4 smem4[];
     ScatterSmem<kPairs>& s = *reinterpret_cast<ScatterSmem<kPairs>*>(smem4);
     const int tid = threadIdx.x;
@@ -243,17 +250,17 @@ radix_scatter(const int* __restrict__ keys_in, const int* __restrict__ vals_in,
         count += c;
     }
     if (d == kBins - 1) count -= kTileKeys - valid;
-    unsigned* my_status = status + static_cast<size_t>(tile) * kBins + d;
+    Status* my_status = status + static_cast<size_t>(tile) * kBins + d;
     store_release(my_status, (tile == 0 ? kFlagPrefix : kFlagAggregate) | count);
 
     s.digit_start[d] = block_exclusive_scan(count, s.warp_sums);
     const unsigned bucket = block_exclusive_scan(hist[d], s.warp_sums);
 
     // Decoupled look-back: the count of digit d over tiles 0..tile-1.
-    unsigned before = 0;
+    Status before = 0;
     if (tile > 0) {
         for (unsigned t = tile - 1;; --t) {
-            unsigned w;
+            Status w;
             do {
                 w = load_acquire(status + static_cast<size_t>(t) * kBins + d);
             } while (!(w & kFlagMask));
@@ -262,8 +269,7 @@ radix_scatter(const int* __restrict__ keys_in, const int* __restrict__ vals_in,
         }
         store_release(my_status, kFlagPrefix | (before + count));
     }
-    s.delta[d] = static_cast<int>(bucket + before) -
-                 static_cast<int>(s.digit_start[d]);
+    s.delta[d] = bucket + static_cast<unsigned>(before) - s.digit_start[d];
 
     // Stage in digit order, then store runs of neighbouring addresses.
 #pragma unroll
@@ -277,15 +283,20 @@ radix_scatter(const int* __restrict__ keys_in, const int* __restrict__ vals_in,
     for (unsigned i = tid; i < valid; i += kSortThreads) {
         const int key = s.keys[i];
         const unsigned dk = digit(static_cast<unsigned>(key) ^ kSignFlip, shift);
-        const unsigned o = static_cast<unsigned>(s.delta[dk] + static_cast<int>(i));
+        const unsigned o = s.delta[dk] + i;
         keys_out[o] = key;
         if (kPairs) vals_out[o] = s.vals[i];
     }
 }
 
+// The histogram and tile counters (an even number of 32-bit words, so the
+// 64-bit status words that follow are 8-byte aligned), then the status.
+constexpr int kHeadWords = kPasses * kBins + kPasses;
+static_assert(kHeadWords % kStatusWords == 0, "status words must be aligned");
+
 long long scratch_words_for(long long n) {
     const long long tiles = (n + kTileKeys - 1) / kTileKeys;
-    return kPasses * kBins + kPasses + kPasses * tiles * kBins;
+    return kHeadWords + kStatusWords * kPasses * tiles * kBins;
 }
 
 template <bool kPairs>
@@ -301,7 +312,7 @@ int radix_sort(const int* keys, const int* vals, int* keys_out, int* vals_out,
     const int tiles = static_cast<int>((n + kTileKeys - 1) / kTileKeys);
     unsigned* hist = scratch;
     unsigned* counters = hist + kPasses * kBins;
-    unsigned* status = counters + kPasses;  // one tile counter a pass
+    Status* status = reinterpret_cast<Status*>(scratch + kHeadWords);
     cudaError_t err = cudaMemsetAsync(
         scratch, 0, scratch_words_for(n) * sizeof(unsigned), st);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -343,7 +354,7 @@ int radix_sort(const int* keys, const int* vals, int* keys_out, int* vals_out,
 // stably, on `stream`, with tmp (n ints) as the ping-pong buffer and
 // scratch (scratch_words unsigned words: the histogram, tile counters and
 // look-back status) as working memory.  keys is not written; out and tmp
-// may not overlap it or each other.  0 < n < 2^30.  Returns the first CUDA
+// may not overlap it or each other.  0 < n < 2^32.  Returns the first CUDA
 // error code (0 on success); cudaErrorInvalidValue when n is out of range
 // or the scratch too small.
 extern "C" int htm_radix_sort_keys(const int* keys, int* out, int* tmp,

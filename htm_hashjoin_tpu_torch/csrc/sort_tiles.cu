@@ -4,43 +4,91 @@
 // _sort_megakernel (entry sort_tiles, pallas_call in _sort_tiles_jit).  For
 // each T-key tile t it sorts the tile by method ("bitonic"; "bitonic_alt",
 // descending on odd tiles, so that every pair of tiles forms a bitonic
-// sequence for the global sort's next level; "blocks"; "oddeven": the
-// networks of sort_tile in banded_common.cuh), writes it back, and writes
+// sequence for a global sort's next level; "blocks"; "oddeven": the
+// functions of sort_tile in banded_common.cuh), writes it back, and writes
 // the stats row [min, max without MAXI32 padding, adjacent inversions]
 // (inversions 0 for the two exact sorters).
 //
-// What bounds it on an H100: the shared-memory compare-exchange stages
-// (log2(T)(log2(T)+1)/2 stages of T/2 exchanges for the bitonic sorters, 91
-// at T = 8192) and their barriers; device memory sees only 8 bytes per key
-// (one read, one write).  The design is one block per tile with the whole
-// tile in dynamic shared memory, 16-byte loads and stores, and a descending
-// tile sorted as its complement (~x reverses int32 order), so every stage
-// is the same ascending exchange.  Holding no band, it takes tiles up to
-// 32768 keys (128 KB), which lets the global sort (K3) start from blocks
-// larger than the join tile.  Register-resident stages and a persistent
-// multi-tile loop are later work.
+// What bounds it on an H100: device memory sees 8 bytes a key (one read,
+// one write), 0.32 ms for 2^27 keys; the sort itself is log2(T)(log2(T)+1)/2
+// compare-exchange stages for a bitonic network, 91 at T = 8192.  Run in
+// shared memory, as the first port of this kernel did, every stage was two
+// shared loads and two stores a pair and a block barrier: 4.89 ms at 2^27,
+// 15x the bound.  The design (sort_tile_regs in banded_common.cuh) keeps the
+// tile in registers, E = T / threads keys a thread (16 at T = 8192 with 512
+// threads).  A network stage inside a thread runs in registers, one across
+// lanes with __shfl_xor_sync (a shuffle a key; on the card the shuffle
+// unit's rate bounds these stages), one across warps through a shared
+// round and a barrier.  So the exact sorters run the
+// network only up to each warp's 32E keys (levels 1-9 at T = 8192, no
+// block barrier), then merge the sorted warp runs level by level along the
+// merge path (four shared rounds, about three shared accesses a key each,
+// where the network's top four levels cost 20 shuffle stages and 10
+// shared rounds).  "blocks" at window 16 (b = 32) sorts its blocks inside
+// warps; its half-shifted blocks are aligned by turning the tile by b/2
+// through shared memory, and back.  "oddeven" pays one shuffle and one
+// barrier a round.  The stats row comes from registers.  A tile that reads
+// as MAXI32 throughout (the multipass join's padding) is copied and not
+// sorted.  Loads and stores are 16 bytes a thread.  Registers are sized for
+// three blocks an SM for the exact sorters (the merges and barriers need
+// warps to hide behind) and two for the others (which would spill at
+// three).
 
 #include "banded_common.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(kMaxThreads)
+// kMinBlocks: the blocks an SM the registers are sized for.  The exact
+// sorters run fastest at three blocks of 512 threads (their merges and
+// barriers need warps to hide behind); the shifted-block and odd-even
+// networks at two, where they keep their keys without spilling.
+template <int E, int P, int kMinBlocks>
+__global__ void __launch_bounds__(P, kMinBlocks)
 sort_tiles_kernel(const int* __restrict__ in, int* __restrict__ out,
-                  int* __restrict__ stats, int tile, int method, int passes) {
+                  int* __restrict__ stats, int method, int passes) {
     extern __shared__ int4 smem4[];
-    int* v = reinterpret_cast<int*>(smem4);
+    constexpr int kT = E * P;
     const int t = blockIdx.x;
-    const long long base = static_cast<long long>(t) * tile;
+    const long long base = static_cast<long long>(t) * kT;
     const bool descending = method == kBitonicAlt && (t & 1);
 
-    copy_keys(v, in + base, tile);
-    __syncthreads();
-    if (descending) complement_keys(v, tile);
-    sort_tile(v, tile, method, passes);
-    if (descending) complement_keys(v, tile);
-    copy_keys(out + base, v, tile);
-    tile_stats_row(v, tile, method == kBlocks || method == kOddEven,
-                   stats + 3 * t);
+    int x[E];
+    load_blocked(x, in + base);
+    bool padding = true;
+#pragma unroll
+    for (int j = 0; j < E; ++j) padding = padding && x[j] == kMaxI32;
+    if (__syncthreads_and(padding)) {   // the same for every thread
+        store_blocked(out + base, x);
+        if (threadIdx.x == 0) {
+            stats[3 * t] = kMaxI32;
+            stats[3 * t + 1] = kMinI32;
+            stats[3 * t + 2] = 0;
+        }
+        return;
+    }
+    if (descending) {
+#pragma unroll
+        for (int j = 0; j < E; ++j) x[j] = ~x[j];
+    }
+    sort_tile_regs<E, P>(x, reinterpret_cast<int*>(smem4), method, passes);
+    if (descending) {
+#pragma unroll
+        for (int j = 0; j < E; ++j) x[j] = ~x[j];
+    }
+    store_blocked(out + base, x);
+    tile_stats_row_regs<E, P>(x, method == kBlocks || method == kOddEven,
+                              stats + 3 * t);
+}
+
+template <int E, int P>
+int launch_sort(const int* in, int* out, int* stats, int n_tiles, int method,
+                int passes, void* stream) {
+    constexpr int kMaxBlocks = P <= 512 ? 3 : 1;
+    const bool exact = method == kBitonic || method == kBitonicAlt;
+    return launch(exact ? sort_tiles_kernel<E, P, kMaxBlocks>
+                        : sort_tiles_kernel<E, P, (kMaxBlocks > 2 ? 2 : 1)>,
+                  n_tiles, P, RegTile<E, P>::kSmemBytes, stream, in, out,
+                  stats, method, passes);
 }
 
 }  // namespace
@@ -52,8 +100,18 @@ sort_tiles_kernel(const int* __restrict__ in, int* __restrict__ out,
 extern "C" int htm_sort_tiles(const int* in, int* out, int* stats,
                               int n_tiles, int tile, int method, int passes,
                               void* stream) {
-    const int threads = tile >= 16384 ? kMaxThreads : kThreads;
-    const int smem = tile * static_cast<int>(sizeof(int));
-    return launch(sort_tiles_kernel, n_tiles, threads, smem, stream, in, out,
-                  stats, tile, method, passes);
+    switch (tile) {
+        case 2048:
+            return launch_sort<4, 512>(in, out, stats, n_tiles, method, passes, stream);
+        case 4096:
+            return launch_sort<8, 512>(in, out, stats, n_tiles, method, passes, stream);
+        case 8192:
+            return launch_sort<16, 512>(in, out, stats, n_tiles, method, passes, stream);
+        case 16384:
+            return launch_sort<16, 1024>(in, out, stats, n_tiles, method, passes, stream);
+        case 32768:
+            return launch_sort<32, 1024>(in, out, stats, n_tiles, method, passes, stream);
+        default:
+            return static_cast<int>(cudaErrorInvalidValue);
+    }
 }

@@ -103,7 +103,7 @@ def load_library() -> ctypes.CDLL:
         "htm_fused_sort_count": [p, p, i64, p, p, p, p, p, p, i, i, i, i, p],
         "htm_sort_tiles": [p, p, p, i, i, i, i, p],
         "htm_radix_sort_keys": [p, p, p, p, i64, i64, p],
-        "htm_banded_count": [p, p, i64, p, p, p, p, i, i, p],
+        "htm_banded_count": [p, p, i64, p, p, p, i, p, p, i, p],
         "htm_banded_count_narrow": [p, p, i64, p, p, p, p, i, i, p],
         "htm_scatter_tiles": [p, p, p, p, i64, i, i, i, p],
         "htm_sort_kv_tiles": [p, p, p, p, i, i, i, p],

@@ -29,13 +29,13 @@ THREADS = BINS              # a scatter block: thread d owns digit d
 ITEMS = 24                  # keys a thread holds in registers
 WARP = 32
 TILE_KEYS = THREADS * ITEMS  # keys a scatter block takes (csrc: kTileKeys)
-MAX_KEYS = 1 << 30          # a status word keeps its count in 30 bits
+MAX_KEYS = 1 << 32          # keys and offsets are 32-bit unsigned
 SIGN_FLIP = 0x80000000
 
 
 def _check_size(fn: str, n: int) -> None:
     if n >= MAX_KEYS:
-        raise ValueError(f"{fn}: the radix sort takes fewer than 2^30 keys, "
+        raise ValueError(f"{fn}: the radix sort takes fewer than 2^32 keys, "
                          f"got {n}")
 
 

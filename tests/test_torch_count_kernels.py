@@ -1,6 +1,7 @@
 """The plain K4 (general count) and K5 (narrow count) against the JAX
 package's banded_count and banded_count_narrow (Pallas, interpret mode) on
-the same sorted tiles, band offsets and chunk counts, tile 2048.
+the same sorted tiles, band offsets and chunk counts, tile 2048; K4's work
+list (items of a few chunks) and the plain model of its per-item count.
 
 The JAX kernels return one (8, 128) grid of partial sums for all tiles, so
 each tile is also run alone (its own one-tile call) to compare counts per
@@ -15,6 +16,7 @@ import torch
 from htm_hashjoin_tpu.joins import pallas_backend as jpb
 from htm_hashjoin_tpu.ops.pallas import join_kernels as jk
 from htm_hashjoin_tpu_torch.joins import banded_backend as tpb
+from htm_hashjoin_tpu_torch.ops import banded_count as bc
 from htm_hashjoin_tpu_torch.ops.banded_count import banded_count
 from htm_hashjoin_tpu_torch.ops.banded_count_narrow import banded_count_narrow
 from htm_hashjoin_tpu_torch.ops.fused_sort_count import fused_sort_count_ref
@@ -39,7 +41,27 @@ def sorted_case(name):
         r = np.arange(1, N + 1, dtype=np.int32)
         s = np.sort(np.concatenate([r, np.full(6000, 2100, np.int32)]))
         return jpb.to_tiles_2d(jnp.asarray(r), TILE), s
+    if name == "one_key_band":  # 12 tiles of one key: chunks of one key
+        r = np.arange(1, N + 1, dtype=np.int32)
+        s = np.sort(np.concatenate([r, np.full(12 * TILE, 5000, np.int32)]))
+        return jpb.to_tiles_2d(jnp.asarray(r), TILE), s
+    if name == "two_hot_keys":  # their runs meet inside a chunk; R has copies
+        r = np.sort(np.concatenate([np.arange(1, N - 63),
+                                    np.full(32, 5000), np.full(32, 5001)])
+                    ).astype(np.int32)
+        s = np.sort(np.concatenate([np.arange(1, N + 1),
+                                    np.full(3000, 5000), np.full(5000, 5001)])
+                    ).astype(np.int32)
+        return jpb.to_tiles_2d(jnp.asarray(r), TILE), s
+    if name == "run_into_distinct":   # a run ends mid-chunk, distinct keys on
+        r = np.arange(1, N + 1, dtype=np.int32)
+        s = np.sort(np.concatenate([r, np.full(4999, 9000, np.int32)]))
+        return jpb.to_tiles_2d(jnp.asarray(r), TILE), s
     raise KeyError(name)
+
+
+K4_CASES = ["unique", "duplicates", "heavy_s_run", "one_key_band",
+            "two_hot_keys", "run_into_distinct"]
 
 
 def geometry(r2d, skeys):
@@ -56,8 +78,10 @@ def port(*arrays):
             else keys_from_numpy(np.asarray(a)) for a in arrays]
 
 
-@pytest.mark.parametrize("name", ["unique", "duplicates", "heavy_s_run"])
+@pytest.mark.parametrize("name", K4_CASES)
 def test_plain_k4_matches_jax_kernel(name):
+    """The plain K4 and the model of the kernel's per-item count (one-key
+    chunks counted from their two end keys) against JAX, tile by tile."""
     r2d, skeys = sorted_case(name)
     s2d = jpb.prepare_probe_side(jnp.asarray(skeys), TILE)
     row_off, rows_needed = geometry(r2d, skeys)
@@ -66,17 +90,21 @@ def test_plain_k4_matches_jax_kernel(name):
     n_chunks = jnp.asarray(n_chunks)
     want = jk.banded_count(r2d, s2d, row_off, n_chunks, tile=TILE,
                            max_chunks=16, interpret=True)
-    counts, status = banded_count(*port(r2d, s2d, row_off, n_chunks),
-                                  tile=TILE)
+    args = port(r2d, s2d, row_off, n_chunks)
+    counts, status = banded_count(*args, tile=TILE)
     assert int(counts.sum()) == int(np.asarray(want, np.int64).sum())
     assert not status.any() and counts[1] == 0
+    model, model_status = bc.model_count(*args, tile=TILE)
+    assert torch.equal(model, counts) and torch.equal(model_status, status)
     for t in range(counts.numel()):
         one = jk.banded_count(r2d[t * RPT:(t + 1) * RPT], s2d,
                               row_off[t:t + 1], n_chunks[t:t + 1], tile=TILE,
                               max_chunks=16, interpret=True)
         assert int(counts[t]) == int(np.asarray(one, np.int64).sum()), t
-    if name == "heavy_s_run":
+    if name != "unique" and name != "duplicates":
         assert int(n_chunks.max()) > 1
+    if name == "one_key_band":
+        assert int(n_chunks.max()) > bc.ITEM_CHUNKS   # split in items
 
 
 @pytest.mark.parametrize("name", ["unique", "duplicates", "heavy_s_run"])
@@ -121,7 +149,44 @@ def test_plain_k4_heavy_hitter_counts_past_32_bits():
     s_pad = tpb.prepare_probe_side(keys, TILE)
     mins = torch.full((n // TILE,), 5, dtype=torch.int32)
     row_off, rows_needed = tpb._rows(*tpb._slice_offsets(keys, mins, mins))
-    counts, _ = banded_count(keys, s_pad, row_off,
-                             tpb._n_chunks(rows_needed, TILE), tile=TILE)
+    n_chunks = tpb._n_chunks(rows_needed, TILE)
+    counts, _ = banded_count(keys, s_pad, row_off, n_chunks, tile=TILE)
     assert int(counts.sum()) == n * n == 1 << 32
     assert counts.dtype == torch.int64
+    assert torch.equal(bc.model_count(keys, s_pad, row_off, n_chunks,
+                                      tile=TILE)[0], counts)
+
+
+@pytest.mark.parametrize("chunks", [[3, 0, 8, 9, 17, 1],
+                                    [0, 16384, 5, 0],
+                                    [0, 0, 0]])
+def test_k4_items_cover_every_chunk_once(chunks):
+    """item_plan: every chunk of every tile in exactly one item of at most
+    ITEM_CHUNKS chunks; a 0-chunk tile's item covers nothing; a
+    16,384-chunk tile is split over many."""
+    n_chunks = torch.tensor(chunks, dtype=torch.int32)
+    extra_end = bc.item_plan(n_chunks)
+    seen = [[0] * c for c in chunks]
+    per_tile = [0] * len(chunks)
+    for k in range(bc.item_count(extra_end)):
+        t, c0, nc = bc.item_range(k, n_chunks, extra_end)
+        assert nc <= bc.ITEM_CHUNKS
+        per_tile[t] += nc > 0
+        for c in range(c0, c0 + nc):
+            seen[t][c] += 1
+    assert all(x == 1 for row in seen for x in row)
+    assert per_tile == [-(-c // bc.ITEM_CHUNKS) for c in chunks]
+    if 16384 in chunks:
+        assert per_tile[chunks.index(16384)] == 16384 // bc.ITEM_CHUNKS
+
+
+def test_k4_model_gives_status_2_past_the_end():
+    """The kernel's model reads nothing of a band past the end of S: count
+    0, status 2 (the plain version raises there)."""
+    keys = torch.arange(1, 2 * TILE + 1, dtype=torch.int32)
+    s_pad = tpb.prepare_probe_side(keys, TILE)
+    n_chunks = torch.tensor([1, s_pad.numel() // TILE + 1], dtype=torch.int32)
+    counts, status = bc.model_count(keys, s_pad,
+                                    torch.zeros(2, dtype=torch.int32),
+                                    n_chunks, tile=TILE)
+    assert counts.tolist() == [TILE, 0] and status.tolist() == [0, 2]

@@ -108,12 +108,24 @@ def duplicates(n, dev, seed=0):
 
 @pytest.mark.parametrize("tile", st.KERNEL_TILES)
 @pytest.mark.parametrize("method,passes", [
-    ("bitonic", 1), ("bitonic_alt", 1), ("blocks", 16), ("oddeven", 4)])
-@pytest.mark.parametrize("kind", ["displaced", "duplicates"])
+    ("bitonic", 1), ("bitonic_alt", 1), ("blocks", 16), ("oddeven", 4),
+    ("blocks", 1), ("blocks", 600), ("oddeven", 1)])
+@pytest.mark.parametrize("kind", ["displaced", "duplicates",
+                                  "negatives and INT32_MIN", "padding"])
 def test_k2_matches_plain(dev, tile, method, passes, kind):
+    """The register-resident tile sort, bit for bit: blocks of 2, 32 and
+    2048 keys (shifted by 1, 16 and 1024), one and four odd-even rounds;
+    the last tile padded, and with "padding" a tile of MAXI32 only."""
     n = 3 * tile - 77
-    keys = (local_shuffled_keys(n, 64, tile, dev) if kind == "displaced"
-            else duplicates(n, dev))
+    if kind == "displaced":
+        keys = local_shuffled_keys(n, 64, tile, dev)
+    elif kind == "duplicates":
+        keys = duplicates(n, dev)
+    elif kind == "padding":
+        keys = local_shuffled_keys(n, 64, tile, dev)
+        keys[tile:2 * tile] = MAXI32
+    else:
+        keys = sort_keys_of(kind, n, dev, 3)
     keys = bb.to_tiles(keys, tile)
     before = st.LAUNCHES
     got = st.sort_tiles(keys, tile=tile, method=method, passes=passes)
@@ -121,6 +133,8 @@ def test_k2_matches_plain(dev, tile, method, passes, kind):
     assert st.LAUNCHES == before + 1
     want = st.sort_tiles_ref(keys, tile=tile, method=method, passes=passes)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if kind == "padding":
+        assert got[1][1].tolist() == [MAXI32, -2**31, 0]
 
 
 SORT_KINDS = ["permutation", "duplicates", "negatives and INT32_MIN",
@@ -184,11 +198,41 @@ def test_radix_sort_takes_any_length(dev, n):
 
 
 def test_radix_scratch_follows_the_model_tile(dev):
+    """The histogram and one tile counter a pass (an even count of 32-bit
+    words), then a 64-bit look-back status word per (pass, tile, digit)."""
     lib = _build.load_library()
-    for n in (1, rs.TILE_KEYS, rs.TILE_KEYS + 1, 1 << 20):
+    head = rs.PASSES * rs.BINS + rs.PASSES
+    assert head % 2 == 0
+    for n in (1, rs.TILE_KEYS, rs.TILE_KEYS + 1, 1 << 20, 1 << 30):
         tiles = -(-n // rs.TILE_KEYS)
         assert lib.htm_radix_sort_scratch_words(n) == \
-            rs.PASSES * rs.BINS + rs.PASSES + rs.PASSES * tiles * rs.BINS
+            head + 2 * rs.PASSES * tiles * rs.BINS
+
+
+def test_k3_sorts_2_to_the_29_plus_1(dev):
+    """Past the old 2^30-key cap: 2^29 + 1 keys padded to 2^30 (about
+    12 GiB with the plain version), exactly."""
+    keys = sort_keys_of("negatives and INT32_MIN", (1 << 29) + 1, dev, 11)
+    padded = bb.to_tiles_pow2(keys, 8192)
+    del keys
+    assert padded.numel() == 1 << 30
+    got = gs.global_sort_tiles(padded, tile=8192)
+    want = gs.global_sort_ref(padded)
+    del padded
+    assert torch.equal(got, want)
+
+
+def test_k7_sorts_2_to_the_29_plus_1_pairs(dev):
+    """2^29 + 1 pairs padded to 2^30 (about 24 GiB with the plain
+    version), bit for bit (both stable)."""
+    n = (1 << 29) + 1
+    keys = bb.to_tiles_pow2(duplicates(n, dev, 12), 8192)
+    vals = torch.zeros_like(keys)
+    vals[:n] = torch.arange(n, dtype=torch.int32, device=dev)
+    got = gkv.global_sort_kv_tiles(keys, vals, tile=8192)
+    want = gkv.global_sort_kv_ref(keys, vals)
+    del keys, vals
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_sorts_of_two_values_at_2_to_the_25(dev):
@@ -231,6 +275,52 @@ def test_k4_matches_plain(dev, tile):
     assert bc.LAUNCHES == before + 1
     want = bc.banded_count_ref(r_flat, s_pad, row_off, n_chunks, tile=tile)
     assert torch.equal(got[0], want[0]) and not got[1].any()
+
+
+def heavy_band(kind, tile, dev):
+    """(sorted R, sorted S) with wide bands of hot keys: one key over many
+    chunks; two hot keys whose runs meet inside a chunk, R holding copies of
+    both; a run ending mid-chunk into distinct keys; one tile whose band is
+    2^14 chunks among 64 ordinary ones."""
+    n = 64 * tile
+    r = torch.arange(1, n + 1, dtype=torch.int32, device=dev)
+    s = [r]
+    if kind == "one key":
+        s.append(torch.full((40 * tile,), 5000, dtype=torch.int32, device=dev))
+    elif kind == "two hot keys":
+        r = torch.sort(torch.cat([r[:n - 64], torch.full(
+            (32,), 5000, dtype=torch.int32, device=dev), torch.full(
+            (32,), 5001, dtype=torch.int32, device=dev)])).values
+        s += [torch.full((20 * tile + 3001,), 5000, dtype=torch.int32,
+                         device=dev),
+              torch.full((9 * tile + 77,), 5001, dtype=torch.int32,
+                         device=dev)]
+    elif kind == "run into distinct keys":
+        s.append(torch.full((17 * tile + tile // 3,), 9000,
+                            dtype=torch.int32, device=dev))
+    else:   # "2^14 chunks"
+        s.append(torch.full(((1 << 14) * tile,), 3 * tile + 5,
+                            dtype=torch.int32, device=dev))
+    return r, torch.sort(torch.cat(s)).values
+
+
+@pytest.mark.parametrize("tile", bc.KERNEL_TILES)
+@pytest.mark.parametrize("kind", ["one key", "two hot keys",
+                                  "run into distinct keys", "2^14 chunks"])
+def test_k4_heavy_bands_match_plain(dev, tile, kind):
+    r, s = heavy_band(kind, tile, dev)
+    r_flat = bb.to_tiles(r, tile)
+    s_pad = bb.prepare_probe_side(s, tile)
+    mins, maxs, _ = st.tile_stats(r_flat, tile)
+    row_off, rows_needed = bb._rows(*bb._slice_offsets(s, mins, maxs))
+    n_chunks = bb._n_chunks(rows_needed, tile)
+    n_chunks[7] = 0
+    assert int(n_chunks.max()) > bc.ITEM_CHUNKS
+    got = bc.banded_count(r_flat, s_pad, row_off, n_chunks, tile=tile)
+    torch.cuda.synchronize()
+    want = bc.banded_count_ref(r_flat, s_pad, row_off, n_chunks, tile=tile)
+    assert torch.equal(got[0], want[0]) and not got[1].any()
+    assert int(got[0][7]) == 0
 
 
 def test_k4_heavy_hitter_2_to_the_37(dev):

@@ -170,5 +170,17 @@ def test_four_passes_end_in_the_output_buffer():
 def test_tile_matches_the_kernel_constants():
     assert rs.TILE_KEYS == rs.THREADS * rs.ITEMS == 6144
     assert rs.THREADS == rs.BINS
-    with pytest.raises(ValueError, match="2\\^30"):
+    with pytest.raises(ValueError, match="2\\^32"):
         rs._check_size("x", rs.MAX_KEYS)
+
+
+@pytest.mark.parametrize("n", [(1 << 29) + 1, 1 << 30, 1 << 31,
+                               (1 << 32) - 1])
+def test_size_check_takes_sorts_past_2_to_the_30(n):
+    """The look-back status words are 64 bits since the 2^30-key cap was
+    lifted: a padded 2^29 + 1 sort (2^30 keys) and 2^31 keys pass the check;
+    2^32 keys (past the 32-bit offsets) do not."""
+    rs._check_size("x", n)
+    with pytest.raises(ValueError, match="fewer than 2\\^32 keys"):
+        rs._check_size("x", n + (1 << 32) - (n & ((1 << 32) - 1)))
+

@@ -19,20 +19,27 @@ TILE = 2048
 
 
 def tiles_input(kind):
-    """Four tiles plus a padded fifth: displaced keys (up to 40 places) or
-    duplicates."""
+    """Four tiles plus a padded fifth: displaced keys (up to 40 places),
+    duplicates, keys over the whole int32 range with INT32_MIN, or
+    displaced keys whose last two tiles are all MAXI32 padding."""
     rng = np.random.default_rng(3)
     n = 4 * TILE + 900
-    if kind == "displaced":
+    if kind in ("displaced", "padding"):
         keys = (np.argsort(np.arange(n) + rng.integers(0, 41, n),
                            kind="stable") + 1).astype(np.int32)
+        if kind == "padding":
+            keys[3 * TILE:] = MAXI32
+    elif kind == "negatives":
+        keys = rng.integers(-2**31, MAXI32, n).astype(np.int32)
+        keys[::97] = -2**31
     else:
         keys = rng.integers(-500, 500, n).astype(np.int32)
     pad = np.full(5 * TILE - n, MAXI32, np.int32)
     return np.concatenate([keys, pad]).reshape(-1, 128)
 
 
-@pytest.mark.parametrize("kind", ["displaced", "duplicates"])
+@pytest.mark.parametrize("kind", ["displaced", "duplicates", "negatives",
+                                  "padding"])
 @pytest.mark.parametrize("method,passes", [("bitonic", 1), ("bitonic_alt", 1),
                                            ("blocks", 16), ("oddeven", 4)])
 def test_plain_k2_matches_jax_kernel(method, passes, kind):
@@ -47,6 +54,8 @@ def test_plain_k2_matches_jax_kernel(method, passes, kind):
     np.testing.assert_array_equal(stats.numpy(), np.asarray(j_stats)[:, :3])
     if method in ("blocks", "oddeven"):
         assert stats[:, 2].sum() > 0           # the window was too small
+    if kind == "padding":                      # an all-padding tile's row
+        assert stats[3:].tolist() == [[MAXI32, -2**31, 0]] * 2
     if method == "bitonic_alt":
         v = got.view(-1, TILE)
         assert (v[1].diff() <= 0).all() and (v[2].diff() >= 0).all()
