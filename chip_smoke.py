@@ -7,7 +7,13 @@ Phases, one line each:
                 (one nvcc process per source, all started together);
   3. kernel   - K1 (fused_sort_count) against its plain torch version on
                 the card, on cases of a few tiles, exactly (integer outputs;
-                counts only on tiles with zero inversions); then K2 (all four
+                counts only on tiles with zero inversions); K1 and K5 on the
+                register count's edge kinds (duplicate runs across threads
+                and warps, a run in the overhang, keys at PACK_LIMIT and
+                above, negatives with INT32_MIN, a tile of MAXI32 only, an
+                odd-even sort with too few passes, a 6000-copy S run) and
+                K1's band prepass (tile_minmax, padding tiles included)
+                against theirs, exactly; then K2 (all four
                 sorters, blocks of 2, 32 and 2048 keys, on negatives with
                 INT32_MIN and a tile of MAXI32 only too), K3 (the radix sort,
                 on negatives with INT32_MIN, constant and two-valued keys
@@ -19,9 +25,16 @@ Phases, one line each:
                 the old 2^30-key cap, exactly, then freed;
   4. main     - the headline join, 2^27 locality build + 2^27 sorted probe,
                 through banded_join_pipelined with bench.py's asserts and a
-                count of K1 launches; then the abort -> bitonic retry at 2^24;
-  5. times    - sustained (5 joins per readback) and single-run throughput,
-                and K1 against its plain version at 2^27 (held equal there too);
+                count of K1 and prepass launches; then the abort -> bitonic
+                retry at 2^24;
+  5. times    - K1 ("blocks" w16, and "bitonic" as the retry runs it) and
+                the prepass against their plain versions at 2^27 (held equal
+                there too); the device chain of one enqueue_banded_join,
+                timed, and split by one torch.profiler call into the
+                prepass, the searchsorted calls, K1 and the rest (no op but
+                the prepass and K1 may take 0.1 ms: one read of R takes
+                0.16); sustained (5 joins per readback) and single-run
+                throughput;
   6. path     - every other plan once at 2^27 keys a side (the heavy hitter
                 at 2^24): build-only with and without locality, wide band,
                 sort-first, the sort-first switch, the skewed probe with its
@@ -109,6 +122,7 @@ from htm_hashjoin_tpu_torch.ops import radix_kernels as rk
 from htm_hashjoin_tpu_torch.ops import scatter_tiles as sct
 from htm_hashjoin_tpu_torch.ops import sort_kv_tiles as skv
 from htm_hashjoin_tpu_torch.ops import sort_tiles as st
+from htm_hashjoin_tpu_torch.ops import tile_minmax as tmm
 from htm_hashjoin_tpu_torch.wisconsin import parse_conf, run_multijoin
 from htm_hashjoin_tpu_torch.wisconsin import partitioner as wpart
 from htm_hashjoin_tpu_torch.wisconsin.driver import load_side
@@ -156,15 +170,13 @@ def _smi(fields: str) -> str:
 
 
 def _max_abs_err(kernel_out, plain_out) -> int:
-    """Largest absolute difference over sorted keys, stats and flags, and
-    over counts of tiles the sorter left without inversions (counts are
-    defined only there)."""
-    ks, kst, kc, kf = kernel_out
-    ps, pst, pc, pf = plain_out
-    exact = pst[:, 2] == 0
-    diffs = [(ks.long() - ps.long()).abs(), (kst.long() - pst.long()).abs(),
-             (kf.long() - pf.long()).abs(),
-             torch.where(exact, (kc - pc).abs(), 0)]
+    """K1's largest absolute difference from its plain version over sorted
+    keys, stats, flags and both key sums, and over counts of tiles the
+    sorter left without inversions (counts are defined only there)."""
+    exact = plain_out[1][:, 2] == 0
+    diffs = [(g.long() - w.long()).abs()
+             for k, (g, w) in enumerate(zip(kernel_out, plain_out)) if k != 2]
+    diffs.append(torch.where(exact, (kernel_out[2] - plain_out[2]).abs(), 0))
     return max(int(d.max()) if d.numel() else 0 for d in diffs)
 
 
@@ -185,6 +197,109 @@ def _check_kernel(name, rkeys, skeys, method, passes):
           f"matches={int(want[2].sum())}, max_abs_err={err}")
     _require(not err, f"K1 differs from its plain version on {name}")
     return err, viols, flagged
+
+
+K1_KINDS = ("duplicate runs across threads and warps",
+            "a run in the last OV keys and the overhang",
+            "keys at PACK_LIMIT and above", "negatives and INT32_MIN",
+            "a tile of MAXI32 only", "oddeven with too few passes",
+            "a 6000-copy S run")
+
+
+def _k1_kind(kind, dev):
+    """(unsorted R, sorted S, method, passes) of 4 tiles: the register
+    count's edges (the same kinds as tests/test_torch_cuda.py)."""
+    n = 4 * TILE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    keys = torch.arange(1, n + 1, dtype=torch.int32, device=dev)
+
+    def shuffle(x, window):
+        jitter = torch.randint(0, window, (x.numel(),), generator=gen,
+                               device=dev)
+        return x[torch.sort(torch.arange(x.numel(), device=dev) + jitter,
+                            stable=True).indices]
+
+    def run(count, key):
+        return torch.full((count,), key, dtype=torch.int32, device=dev)
+
+    if kind == K1_KINDS[0]:   # runs of 1-11; 300 copies over a warp's 512
+        r = torch.repeat_interleave(keys, torch.randint(
+            1, 12, (n,), generator=gen, device=dev))[:n].clone()
+        r[512 - 150:512 + 150] = r[512 - 150]
+        s = torch.cat([torch.arange(1, int(r.max()) + 1, dtype=torch.int32,
+                                    device=dev), r[::3]])
+        return shuffle(r, 8), torch.sort(s).values, "blocks", 8
+    if kind == K1_KINDS[1]:   # S's 257 copies straddle band position T
+        r, extra = keys.clone(), []
+        for t in range(4):
+            k = int(r[t * TILE + TILE - 100])
+            r[t * TILE + TILE - 110:t * TILE + TILE - 90] = k
+            extra.append(run(256, k))
+        return (shuffle(r, 16), torch.sort(torch.cat([keys] + extra)).values,
+                "blocks", 16)
+    if kind == K1_KINDS[2]:
+        high = torch.cat([(1 << 29) + torch.arange(400, device=dev),
+                          run(100, MAXI32 - 1)]).to(torch.int32)
+        r = torch.sort(torch.cat([keys[:n - 500], high])).values
+        return (shuffle(r, 4), torch.sort(torch.cat([r, high])).values,
+                "oddeven", 4)
+    if kind == K1_KINDS[3]:
+        r = torch.sort(_full_range(n, dev, 33)).values
+        r[:50] = -2**31
+        s = torch.sort(torch.cat([r[::2], run(30, -2**31)])).values
+        return shuffle(r, 512), s, "bitonic", 1
+    if kind == K1_KINDS[4]:
+        r = shuffle(keys, 16)
+        r[TILE:2 * TILE] = MAXI32
+        return r, keys, "blocks", 16
+    if kind == K1_KINDS[5]:
+        return shuffle(keys, 64), keys, "oddeven", 1
+    return (shuffle(keys, 8), torch.sort(torch.cat([keys, run(6000, 100)])
+                                         ).values, "oddeven", 8)
+
+
+def _check_k1_kinds(dev, errs) -> None:
+    """K1 on each kind's unsorted tiles and K5 on the same tiles sorted,
+    each against its plain version, exactly (K1's counts where its tile has
+    no inversions); then the prepass against its plain version on the
+    kinds' tiles, a padded last tile and tiles of MAXI32 only."""
+    for kind in K1_KINDS:
+        rkeys, skeys, method, passes = _k1_kind(kind, dev)
+        r_flat = bb.to_tiles(rkeys, TILE)
+        s_pad = bb.prepare_probe_side(skeys, TILE)
+        _, _, row_off, rows_needed = bb.band_rows(r_flat, skeys, TILE)
+        args = (r_flat, s_pad, row_off, rows_needed)
+        kw = dict(tile=TILE, method=method, passes=passes)
+        got = fsc.fused_sort_count(*args, **kw)
+        torch.cuda.synchronize()
+        want = fsc.fused_sort_count_ref(*args, **kw)
+        err = _max_abs_err(got, want)
+        viols = int(want[1][:, 2].sum())
+        sorted_r = torch.sort(r_flat.view(-1, TILE), dim=1).values.reshape(-1)
+        got5 = bcn.banded_count_narrow(sorted_r, *args[1:], tile=TILE)
+        want5 = bcn.banded_count_narrow_ref(sorted_r, *args[1:], tile=TILE)
+        err5 = max(_err(g, w) for g, w in zip(got5, want5))
+        print(f"kernel: K1 and K5 on {kind}: method={method} passes={passes},"
+              f" inversions={viols}, flags={want[3].tolist()}, matches="
+              f"{int(want5[0].sum())}, max_abs_err={err} (K5: {err5})")
+        _require(not err and not err5 and
+                 (viols > 0) == (kind == K1_KINDS[5]) and
+                 (int(want[3][0]) == 1) == (kind == K1_KINDS[6]),
+                 f"K1 or K5 differs from its plain version on {kind}")
+        errs["fused_sort_count"] = max(errs["fused_sort_count"], err)
+        errs["banded_count_narrow"] = max(errs["banded_count_narrow"], err5)
+    keys = bb.to_tiles(_full_range(5 * TILE - 777, dev, 34), TILE)
+    keys[TILE:2 * TILE] = MAXI32
+    for what, r in (("negatives, a padded last tile, a tile of MAXI32 only",
+                     keys), ("MAXI32 only", torch.full_like(keys, MAXI32)),
+                    ("one tile", keys[:TILE].clone())):
+        got = tmm.tile_minmax(r, TILE)
+        want = tmm.tile_minmax_ref(r, TILE)
+        err = max(_err(got[0], want[0]), _err(got[1], want[1]))
+        print(f"kernel: prepass tile_minmax on {what}: max_abs_err={err}")
+        _require(not err, f"the prepass differs from its plain version on "
+                 f"{what}")
 
 
 def _events_ms(fn, reps: int) -> float:
@@ -220,6 +335,7 @@ def _bound_ms(inputs, outputs) -> float:
 def _reset_counts() -> None:
     for mod, _, _ in KERNELS.values():
         mod.LAUNCHES = 0
+    tmm.LAUNCHES = 0
 
 
 def _counts() -> dict:
@@ -360,8 +476,9 @@ def _check_other_kernels(dev, errs: dict) -> None:
     got = bcn.banded_count_narrow(*args, tile=TILE)
     want = bcn.banded_count_narrow_ref(*args, tile=TILE)
     k1 = fsc.fused_sort_count(*args, tile=TILE, method="bitonic")
-    err = max(_err(got[0], want[0]), _err(got[1], want[1]))
-    err_k1 = max(_err(got[0], k1[2]), _err(got[1], k1[3]))
+    err = max(_err(g, w) for g, w in zip(got, want))
+    err_k1 = max(_err(got[0], k1[2]), _err(got[1], k1[3]),
+                 _err(got[2], k1[4]), _err(got[2], k1[5]))
     print(f"kernel: K5: flagged={int(want[1].sum())}, matches="
           f"{int(want[0].sum())}, max_abs_err={err} (against K1's count: "
           f"{err_k1})")
@@ -469,6 +586,27 @@ def _run_path(name, fn, expect, card) -> dict:
     return counts
 
 
+def _kernel_name(name: str) -> str:
+    """A device event's kernel name without namespaces, template arguments
+    and parameters."""
+    key = name.replace("(anonymous namespace)::", "")
+    key = key.removeprefix("void ").split("(")[0].split("<")[0]
+    return key.split("::")[-1]
+
+
+def _device_ops(fn) -> list:
+    """(kernel name, device ms) of every device op of one call of ``fn``
+    under torch.profiler, in launch order (after one warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(_kernel_name(e.name), e.device_time / 1e3)
+            for e in prof.events() if e.device_type.name == "CUDA"]
+
+
 # kernels whose device time every profile line gives, in the top four or not
 WATCHED = ("sort_tiles_kernel", "banded_count_kernel")
 
@@ -500,9 +638,7 @@ def _profile(name, fn, card, reps=3) -> None:
     by_name = {}
     for e in prof.events():
         if e.device_type.name == "CUDA":
-            key = e.name.replace("(anonymous namespace)::", "")
-            key = key.removeprefix("void ").split("(")[0].split("<")[0]
-            key = key.split("::")[-1]
+            key = _kernel_name(e.name)
             by_name[key] = by_name.get(key, 0.0) + e.device_time / 1e3
     busy = sum(by_name.values())
     median = float(np.median(walls))
@@ -1164,20 +1300,20 @@ def main() -> int:
          "oddeven", 8),
     ]
     errs = dict.fromkeys(KERNELS, 0)
-    max_err = 0
     for name, rkeys, skeys, method, passes in cases:
         err, viols, flagged = _check_kernel(name, rkeys, skeys, method,
                                             passes)
-        max_err = max(max_err, err)
+        errs["fused_sort_count"] = max(errs["fused_sort_count"], err)
         if name.startswith("underestimated"):
             _require(viols > 0, "the underestimated window left no inversions")
         if name.startswith("6000"):
             _require(flagged > 0, "the 6000-copy run did not flag its tile")
     del cases, dup, dup_r, heavy_s
+    _check_k1_kinds(dev, errs)
     _check_other_kernels(dev, errs)
     _check_big_sorts(dev, errs)
 
-    # 4. the main path at 2^27, counting K1 launches
+    # 4. the main path at 2^27, counting K1 and prepass launches
     n = 1 << LOG2_N
     expect_sum = n * (n + 1) // 2
     rkeys = local_shuffled_keys(n, WINDOW, 0, dev)
@@ -1193,13 +1329,15 @@ def main() -> int:
     main_counts = _counts()
     launches = main_counts["fused_sort_count"]
     print(f"main: 2^{LOG2_N} build+probe, window {WINDOW}, tile {TILE}: "
-          f"{out} (first call {first_s:.3f} s), K1 launches={launches}")
+          f"{out} (first call {first_s:.3f} s), K1 launches={launches}, "
+          f"prepass launches={tmm.LAUNCHES}")
     _require(out.matches == n, f"expected {n} matches, got {out.matches}")
     _require(out.output_sum == out.input_sum == expect_sum,
              "conservation violated")
     _require(out.violations == 0 and out.overflow_tiles == 0,
              "violations or flagged tiles on the main path")
-    _require(launches >= 1, "the main path did not launch K1")
+    _require(launches >= 1 and tmm.LAUNCHES >= 1,
+             "the main path did not launch K1 and its prepass")
 
     m = 1 << 24
     before = fsc.LAUNCHES
@@ -1213,30 +1351,62 @@ def main() -> int:
              "the abort -> retry run did not retry or lost matches")
     _require(fsc.LAUNCHES - before == 2, "the retry did not relaunch K1")
 
-    # 5. times
+    # 5. times: K1 (as the main path and as the retry run it), the
+    # prepass, the device chain and its split, then bench
     r_flat = bb.to_tiles(rkeys, TILE)
     _, _, row_off, rows_needed = bb.band_rows(r_flat, skeys, TILE)
     args = (r_flat, s2d, row_off, rows_needed)
-    kw = dict(tile=TILE, method="blocks", passes=WINDOW)
-    got = fsc.fused_sort_count(*args, **kw)
-    want = fsc.fused_sort_count_ref(*args, **kw)
-    err = _max_abs_err(got, want)
-    print(f"times: K1 at 2^{LOG2_N} against its plain version: "
-          f"max_abs_err={err}")
-    _require(not err, "K1 differs from its plain version at 2^27")
-    max_err = max(max_err, err)
-    k1_bound = _bound_ms(args, got)
-    del got, want
-    k1_ms = _events_ms(lambda: fsc.fused_sort_count(*args, **kw), 20)
-    plain_ms = _events_ms(lambda: fsc.fused_sort_count_ref(*args, **kw),
-                          3)
-    join_ms = _events_ms(lambda: bb.enqueue_banded_join(
-        rkeys, skeys, tile=TILE, locality_window=WINDOW, unique_both=True,
-        s2d=s2d), 10)
-    print(f"times: K1 {k1_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{k1_bound:.4f} ms, whole device "
-          f"chain {join_ms:.4f} ms (glue {join_ms - k1_ms:.4f} ms) at "
-          f"2^{LOG2_N}, tile {TILE} [{card}]")
+    k1 = {}
+    for method, passes in (("blocks", WINDOW), ("bitonic", 1)):
+        kw = dict(tile=TILE, method=method, passes=passes)
+        got = fsc.fused_sort_count(*args, **kw)
+        want = fsc.fused_sort_count_ref(*args, **kw)
+        err = _max_abs_err(got, want)
+        _require(not err, f"K1 {method} differs from its plain version at "
+                 f"2^{LOG2_N}")
+        errs["fused_sort_count"] = max(errs["fused_sort_count"], err)
+        bound = _bound_ms(args, got)
+        del got, want
+        ms = _events_ms(lambda: fsc.fused_sort_count(*args, **kw), 20)
+        plain = _events_ms(lambda: fsc.fused_sort_count_ref(*args, **kw), 3)
+        k1[method] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                          library_ms=None)
+        print(f"times: K1 {method} at 2^{LOG2_N}: {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {bound:.4f} ms, max_abs_err={err} "
+              f"[{card}]")
+    got = tmm.tile_minmax(r_flat, TILE)
+    want = tmm.tile_minmax_ref(r_flat, TILE)
+    err = max(_err(got[0], want[0]), _err(got[1], want[1]))
+    _require(not err, "the prepass differs from its plain version at 2^27")
+    pre_bound = _bound_ms((r_flat,), got)
+    pre_ms = _events_ms(lambda: tmm.tile_minmax(r_flat, TILE), 20)
+    pre_plain = _events_ms(lambda: tmm.tile_minmax_ref(r_flat, TILE), 5)
+    print(f"times: prepass tile_minmax at 2^{LOG2_N}: {pre_ms:.4f} ms, plain "
+          f"(amin, where, amax) {pre_plain:.4f} ms, bound {pre_bound:.4f} ms,"
+          f" max_abs_err={err} [{card}]")
+
+    def chain():
+        return bb.enqueue_banded_join(rkeys, skeys, tile=TILE,
+                                      locality_window=WINDOW,
+                                      unique_both=True, s2d=s2d)
+
+    join_ms = _events_ms(chain, 10)
+    ops = _device_ops(chain)
+    part = {"prepass": "tile_minmax_kernel", "K1": "fused_sort_count_kernel"}
+    split = {k: sum(t for name, t in ops if name == v)
+             for k, v in part.items()}
+    split["searchsorted"] = sum(t for name, t in ops if "searchsorted" in name)
+    others = [(name, t) for name, t in ops if name not in part.values()]
+    split["rest"] = sum(t for name, t in others) - split["searchsorted"]
+    print(f"times: device chain of enqueue_banded_join at 2^{LOG2_N}: "
+          f"{join_ms:.4f} ms a call (CUDA events, 10 calls); one profiled "
+          f"call: {'; '.join(f'{k} {v:.4f} ms' for k, v in split.items())};"
+          f" the {len(others)} other ops: "
+          f"{', '.join(f'{name} {t * 1e3:.1f} us' for name, t in others)} "
+          f"[{card}]")
+    _require(all(t < 0.1 for _, t in others),
+             "an op other than the prepass and K1 took 0.1 ms or more on the "
+             "headline chain (one read of R takes 0.16 ms)")
     del args, r_flat, row_off, rows_needed, rkeys, skeys, s2d
     torch.cuda.empty_cache()
     rec = bench.measure(log2_n=LOG2_N, window=WINDOW, reps=3, pipe=5)
@@ -1245,9 +1415,7 @@ def main() -> int:
           f"single={2 * n / rec['single_run_seconds'] / 1e6:.1f} Mtuples/s "
           f"[{card}; {_smi('clocks.sm,power.draw,temperature.gpu')}]")
 
-    errs["fused_sort_count"] = max_err
-    times = {"fused_sort_count": dict(ms=k1_ms, plain_ms=plain_ms,
-                                      bound_ms=k1_bound, library_ms=None)}
+    times = {"fused_sort_count": k1["blocks"]}
 
     # 6-7. every other path at 2^27, then K2-K5 at their paths' shapes
     counts = _paths(dev, card, errs, times)

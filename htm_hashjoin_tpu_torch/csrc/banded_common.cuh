@@ -1,12 +1,12 @@
 // Device code shared by the banded join's kernels (K1 fused sort + count,
-// K2 tile sort, K3 global sort, K4 general count, K5 narrow count) and the
-// key-value sort (K7a, K7b): the shared-memory sorting networks (keys only
-// and key-value; K1 and K7a), K2's register-resident tile sort, 16-byte
-// tile copies, the band binary
-// searches, block reductions, the per-tile stats row and the narrow-band
-// count with its exactness certificate.  One definition each, so the
-// kernels cannot drift apart on them (the JAX package's make_tile_stats_row
-// and make_contributions play the same role for its Pallas kernels).
+// K2 tile sort, K4 general count, K5 narrow count) and K7a, the key-value
+// block sort: K7a's shared-memory key-value network, K2's register-resident
+// tile sort (K1 runs it too), 16-byte tile copies, block reductions, the
+// per-tile stats row, the band search of the counts (K1, K4 and K5) and
+// the narrow-band count with its exactness certificate (K1 and K5).  One
+// definition each, so the kernels cannot drift apart on them (the JAX
+// package's make_tile_stats_row and make_contributions play the same role
+// for its Pallas kernels).
 //
 // Everything sits in an unnamed namespace: each kernel source is its own
 // translation unit and gets its own copy.  Block-wide helpers synchronise
@@ -24,52 +24,15 @@ constexpr int kOv = kLanes * kOvRows;
 constexpr int kMaxI32 = 0x7fffffff;
 constexpr int kMinI32 = -kMaxI32 - 1;
 constexpr int kPackLimit = 1 << 29;
-constexpr int kThreads = 512;      // block size of the count kernels
-constexpr int kMaxThreads = 1024;  // block size of the sorts on 16K+ tiles
+constexpr int kThreads = 512;      // K7a's block size below 16K-pair blocks
+constexpr int kMaxThreads = 1024;  // the largest block of any kernel here
 constexpr int kMaxWarps = kMaxThreads / 32;
 
 enum Method { kBitonic = 0, kBlocks = 1, kOddEven = 2, kBitonicAlt = 3 };
 
-__device__ __forceinline__ void compare_exchange(int* s, int i, int j) {
-    const int a = s[i];
-    const int b = s[j];
-    s[i] = min(a, b);
-    s[j] = max(a, b);
-}
-
-// Stages d = h, h/2, ..., 1 of an ascending bitonic merge over s[0, n):
-// every key i with bit d clear is exchanged with key i + d.
-__device__ void merge_stages(int* s, int n, int h) {
-    const int pairs = n >> 1;
-    for (int d = h; d >= 1; d >>= 1) {
-        for (int p = threadIdx.x; p < pairs; p += blockDim.x) {
-            const int i = ((p & ~(d - 1)) << 1) | (p & (d - 1));
-            compare_exchange(s, i, i + d);
-        }
-        __syncthreads();
-    }
-}
-
-// Sorts s[0, n) ascending in aligned segments of `seg` keys (seg a power of
-// two dividing n), running levels k0..seg of the bitonic network in its
-// flip form: the first stage of level k pairs each key with its mirror in
-// the k-block, so every exchange is ascending.  k0 = 2 sorts each segment;
-// k0 = seg merges segments whose two halves are already sorted.
-__device__ void sort_segments(int* s, int n, int seg, int k0) {
-    const int pairs = n >> 1;
-    for (int k = k0; k <= seg; k <<= 1) {
-        const int h = k >> 1;
-        for (int p = threadIdx.x; p < pairs; p += blockDim.x) {
-            const int r = p & (h - 1);
-            const int i = ((p & ~(h - 1)) << 1) | r;
-            compare_exchange(s, i, (i | (k - 1)) - r);
-        }
-        __syncthreads();
-        merge_stages(s, n, h >> 1);
-    }
-}
-
-// The key-value forms of the networks above (K7): keys are compared, and a
+// K7a's network, in shared memory: the flip form of the bitonic network
+// (the first stage of level k pairs each key with its mirror in the
+// k-block, so every exchange is ascending).  Keys are compared, and a
 // key's value moves with it.  Ties are left in place, so equal keys keep
 // whatever value order the network gives them (a bitonic network is not
 // stable, on the TPU either).
@@ -97,8 +60,8 @@ __device__ void merge_stages_kv(int* k, int* v, int n, int h) {
     }
 }
 
-// Sorts k[0, n) ascending, v riding (n a power of two), in the flip form
-// of sort_segments.  Ends synchronised.
+// Sorts k[0, n) ascending, v riding (n a power of two).  Ends
+// synchronised.
 __device__ void sort_kv(int* k, int* v, int n) {
     const int pairs = n >> 1;
     for (int kk = 2; kk <= n; kk <<= 1) {
@@ -110,37 +73,6 @@ __device__ void sort_kv(int* k, int* v, int n) {
         }
         __syncthreads();
         merge_stages_kv(k, v, n, h >> 1);
-    }
-}
-
-__device__ void odd_even_passes(int* s, int n, int passes) {
-    for (int round = 0; round < passes; ++round) {
-        for (int p = threadIdx.x; p < n / 2; p += blockDim.x) {
-            compare_exchange(s, 2 * p, 2 * p + 1);
-        }
-        __syncthreads();
-        for (int p = threadIdx.x; p < n / 2 - 1; p += blockDim.x) {
-            compare_exchange(s, 2 * p + 1, 2 * p + 2);
-        }
-        __syncthreads();
-    }
-}
-
-// One tile's sort by method ("bitonic" and "bitonic_alt": full ascending
-// sort; "blocks": aligned b-block sorts, then half-shifted b-block merges
-// over [b/2, T - b/2), b = min(next_pow2(2*passes), T); "oddeven": `passes`
-// rounds of even and odd transposition phases).  Ends synchronised.
-__device__ void sort_tile(int* v, int tile, int method, int passes) {
-    if (method == kBlocks) {
-        int b = 1;
-        while (b < 2 * passes) b <<= 1;
-        b = min(b, tile);
-        sort_segments(v, tile, b, 2);
-        if (b < tile) sort_segments(v + b / 2, tile - b, b, b);
-    } else if (method == kOddEven) {
-        odd_even_passes(v, tile, passes);
-    } else {
-        sort_segments(v, tile, tile, 2);
     }
 }
 
@@ -158,29 +90,6 @@ __device__ __forceinline__ void copy_keys(int* __restrict__ dst,
 __device__ void complement_keys(int* v, int n) {
     for (int i = threadIdx.x; i < n; i += blockDim.x) v[i] = ~v[i];
     __syncthreads();
-}
-
-// First index in a[lo, n) whose key is >= key (strict = false) or > key
-// (strict = true).
-__device__ __forceinline__ int bound(const int* a, int lo, int n, int key,
-                                     bool strict) {
-    int hi = n;
-    while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        const int x = a[mid];
-        if (x < key || (strict && x == key)) {
-            lo = mid + 1;
-        } else {
-            hi = mid;
-        }
-    }
-    return lo;
-}
-
-// Number of keys in the sorted run a[0, n) equal to key.
-__device__ __forceinline__ int equal_count(const int* a, int n, int key) {
-    const int lo = bound(a, 0, n, key, false);
-    return bound(a, lo, n, key, true) - lo;
 }
 
 __device__ __forceinline__ int warp_min(int x) {
@@ -237,79 +146,8 @@ __device__ long long block_sum(long long x) {
     return x;
 }
 
-// The stats row [min, max without MAXI32 padding, adjacent inversions] of
-// the tile v[0, tile), written to row[0..2] by thread 0.  Inversions are
-// counted only for the inexact sorters; the exact ones report 0, as the
-// JAX kernel's stats row does.
-__device__ void tile_stats_row(const int* v, int tile, bool count_inversions,
-                               int* row) {
-    int mn = kMaxI32, mx = kMinI32, inv = 0;
-    for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-        const int x = v[i];
-        mn = min(mn, x);
-        if (x != kMaxI32) mx = max(mx, x);
-        if (count_inversions && i + 1 < tile && x > v[i + 1]) ++inv;
-    }
-    mn = block_min(mn);
-    mx = block_max(mx);
-    inv = static_cast<int>(block_sum(inv));
-    if (threadIdx.x == 0) {
-        row[0] = mn;
-        row[1] = mx;
-        row[2] = inv;
-    }
-}
-
-// Loads tile t's narrow band S[row_off*128, +tile + kOv) into band when it
-// lies inside s[0, s_len); returns whether it does (nothing is read if not).
-// No barrier.
-__device__ bool load_band(int* band, const int* s, long long s_len,
-                          int row_off, int tile) {
-    const long long start = static_cast<long long>(row_off) * kLanes;
-    const bool in_range = row_off >= 0 && start + tile + kOv <= s_len;
-    if (in_range) copy_keys(band, s + start, tile + kOv);
-    return in_range;
-}
-
-// The narrow-band count of K1 and K5 for one sorted tile v[0, tile) and its
-// band[0, tile + kOv): equal-key pairs (keys < PACK_LIMIT) of every tile key
-// against band[:tile] and of the tile's last kOv keys against band[tile:],
-// then the certificate
-//   ok = need <= T/128 || (mx_pre < ovh_min && need <= T/128 + OV_ROWS)
-// (mx_pre: max of tile row T/128 - OV_ROWS - 1; ovh_min: min of band row
-// T/128).  Thread 0 writes *count = ok ? pairs : 0 and *flag = 0 (ok),
-// 1 (recount exactly) or 2 (band outside S: nothing was read).  The count
-// is a binary search per key instead of the TPU's bitonic merge of packed
-// key*4+tag runs; it equals the merge's count whenever the tile is sorted.
-__device__ void narrow_count(const int* v, const int* band, int tile,
-                             bool in_range, int need, long long* count,
-                             int* flag) {
-    const int pre_lo = tile - kOv - kLanes;
-    int mx_pre = kMinI32, ovh_min = kMaxI32;
-    long long cnt = 0;
-    for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-        const int x = v[i];
-        if (i >= pre_lo && i < pre_lo + kLanes) mx_pre = max(mx_pre, x);
-        if (in_range && x < kPackLimit) {
-            cnt += equal_count(band, tile, x);
-            if (i >= tile - kOv) cnt += equal_count(band + tile, kOv, x);
-        }
-    }
-    if (in_range && threadIdx.x < kLanes) ovh_min = band[tile + threadIdx.x];
-    mx_pre = block_max(mx_pre);
-    ovh_min = block_min(ovh_min);
-    cnt = block_sum(cnt);
-    if (threadIdx.x == 0) {
-        const int rpt = tile / kLanes;
-        const bool ok = in_range &&
-            (need <= rpt || (mx_pre < ovh_min && need <= rpt + kOvRows));
-        *count = ok ? cnt : 0;
-        *flag = in_range ? (ok ? 0 : 1) : 2;
-    }
-}
-
 // ---------------------------------------------------------------------------
-// The register-resident tile sort (K2).
+// The register-resident tile sort (K1 and K2).
 //
 // A block of P threads holds a T = E * P key tile in registers, E keys a
 // thread in the blocked layout: key i of the tile is x[i % E] of thread
@@ -543,8 +381,9 @@ __device__ void rotate_keys(int (&x)[E], ShuffleBuf<E, P>& sh, int shift) {
     for (int j = 0; j < E; ++j) x[j] = buf[padded((first + j + shift) & (kT - 1))];
 }
 
-// `passes` rounds of odd-even transposition, step for step as
-// odd_even_passes: the even phase and the odd phase's pairs inside a
+// `passes` rounds of odd-even transposition (the even phase exchanges
+// keys 2p and 2p + 1, the odd phase 2p + 1 and 2p + 2), step for step as
+// the plain sorter: the even phase and the odd phase's pairs inside a
 // thread run in registers; the odd pair across two threads takes one
 // shuffle, and across two warps a word of shared memory (one barrier a
 // round, the words used in turn).
@@ -579,14 +418,17 @@ __device__ void odd_even_regs(int (&x)[E], int passes) {
     }
 }
 
-// One tile's sort by method, as sort_tile does it in shared memory, on the
-// blocked tile x.  buf: RegTile<E, P>::kSmemBytes of shared memory.
+// One tile's sort by method on the blocked tile x ("bitonic" and
+// "bitonic_alt": a full ascending sort; "blocks": aligned b-block sorts,
+// then half-shifted b-block merges over [b/2, T - b/2), b =
+// min(next_pow2(2*passes), T); "oddeven": `passes` rounds of even and odd
+// transposition phases).  buf: RegTile<E, P>::kSmemBytes of shared memory.
 // "bitonic" sorts each warp's 32E keys by the network, then merges them up
 // to the tile; "blocks" sorts the aligned b-blocks, then (b < T) turns
 // the tile by b/2 so the half-shifted blocks are aligned, merges all but
 // the last (the two end half-blocks) and turns it back.  Results are those
-// of sort_tile bit for bit: each block is sorted exactly, and the odd-even
-// rounds are the same steps.
+// of the plain sorters (ops/sorters.py) bit for bit: each block is sorted
+// exactly, and the odd-even rounds are the same steps.
 template <int E, int P>
 __device__ void sort_tile_regs(int (&x)[E], int* buf, int method, int passes) {
     constexpr int kT = RegTile<E, P>::kT;
@@ -611,9 +453,11 @@ __device__ void sort_tile_regs(int (&x)[E], int* buf, int method, int passes) {
     }
 }
 
-// The stats row (as tile_stats_row) of the blocked tile x, from registers;
-// an adjacent pair across threads costs one shuffle, across warps a word
-// of shared memory.  Written to row[0..2] by thread 0.
+// The stats row [min, max without MAXI32 padding, adjacent inversions] of
+// the blocked tile x, from registers (inversions are counted only for the
+// inexact sorters; the exact ones report 0, as the JAX kernel's stats row
+// does); an adjacent pair across threads costs one shuffle, across warps a
+// word of shared memory.  Written to row[0..2] by thread 0.
 template <int E, int P>
 __device__ void tile_stats_row_regs(const int (&x)[E], bool count_inversions,
                                     int* row) {
@@ -680,6 +524,230 @@ __device__ __forceinline__ void store_blocked(int* __restrict__ dst,
 #pragma unroll
     for (int q = 0; q < E / 4; ++q) {
         d4[q] = make_int4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// The band search of the counts (K1, K4, K5).
+//
+// A count holds its sorted tile in registers, E consecutive keys a thread,
+// so a thread's keys ascend: its first key takes one binary search over
+// the band (or chunk) in shared memory, and each next key gallops from
+// where the last one ended (a few steps where the tile and the band
+// interleave, as in a merge); a repeated key reuses the last count, and a
+// key outside the band's [first, last] is not searched.  The first ports
+// ran two full binary searches a key over lane-consecutive keys: 2 log2(T)
+// dependent shared reads a key, every lane of a warp on the same path.
+
+// A band sits in shared memory with 4 words of padding after every 32
+// (16-byte copies stay aligned): a warp's searches for keys 16 apart in the
+// tile land 16-32 words apart in a dense band, which would hit 1-2 of the
+// 32 banks; padded, they spread over 8-16.  (One word in 32, copied 4 bytes
+// at a time, spreads them over all 32 and measured slower in K4.)
+__device__ __forceinline__ int at(const int* band, int p) {
+    return band[p + 4 * (p >> 5)];
+}
+
+// The padded size of n keys (n a multiple of 32).
+__host__ __device__ constexpr int padded_chunk(int n) {
+    return n + n / 8;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+                 ::"r"(dst), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+}
+
+// Starts copying src[0, n) (16-byte aligned, n a multiple of 32) into the
+// padded dst with cp.async, 16 bytes a copy, the block's threads in turn;
+// commits nothing.
+__device__ __forceinline__ void cp_async_padded(int* dst, const int* src,
+                                                int n) {
+    for (int i = threadIdx.x; i < n / 4; i += blockDim.x) {
+        cp_async16(dst + 4 * i + 4 * (i >> 3), src + 4 * i);
+    }
+}
+
+__device__ __forceinline__ bool before(int x, int key, bool strict) {
+    return x < key || (strict && x == key);
+}
+
+// First index in the padded band a[from, n) whose key is >= key (> key
+// when strict), where every key before from is below it: exponential
+// steps, then a binary search over the last step.  from <= n, and the
+// result lies in [from, n] whatever the keys.
+__device__ __forceinline__ int gallop(const int* a, int from, int n, int key,
+                                      bool strict) {
+    int lo = from, hi = n;
+    for (int step = 1;; step <<= 1) {
+        const int idx = lo + step - 1;
+        if (idx >= n) break;
+        if (before(at(a, idx), key, strict)) {
+            lo = idx + 1;
+        } else {
+            hi = idx;
+            break;
+        }
+    }
+    while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (before(at(a, mid), key, strict)) {
+            lo = mid + 1;
+        } else {
+            hi = mid;
+        }
+    }
+    return lo;
+}
+
+// First index in the padded band a[0, n) whose key is >= key.
+__device__ __forceinline__ int lower_bound(const int* a, int n, int key) {
+    int lo = 0, hi = n;
+    while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (at(a, mid) < key) {
+            lo = mid + 1;
+        } else {
+            hi = mid;
+        }
+    }
+    return lo;
+}
+
+// Pairs of the thread's keys x (ascending where the tile is sorted) with
+// the sorted, padded band[0, n) whose keys span [lo, hi].  On keys that do
+// not ascend the count is undefined, but every search stays in [0, n] and
+// ends: each starts where the last ended, at most n.
+template <int E>
+__device__ __forceinline__ long long count_chunk(const int (&x)[E],
+                                                 const int* band, int n,
+                                                 int lo, int hi) {
+    long long cnt = 0;
+    int pos = -1;    // where the last searched key's run ended
+    int last = 0;    // that run's length
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+        const int k = x[j];
+        if (k < lo || k > hi || k >= kPackLimit) continue;
+        if (j > 0 && k == x[j > 0 ? j - 1 : 0]) {   // x[j - 1] was counted
+            cnt += last;
+            continue;
+        }
+        const int l = pos < 0 ? lower_bound(band, n, k)
+                              : gallop(band, pos, n, k, false);
+        const int u = gallop(band, l, n, k, true);
+        last = u - l;
+        pos = u;
+        cnt += last;
+    }
+    return cnt;
+}
+
+// ---------------------------------------------------------------------------
+// The narrow-band count of K1 and K5.
+//
+// Tile t's band is S[row_off*128, +T + kOv): T keys, which hold every
+// match of the tile when the band is narrow, then an overhang of kOv keys
+// (OV_ROWS rows), against which the tile's last kOv keys are counted too.
+
+// Starts copying tile t's band into the padded shared band
+// (padded_chunk(tile + kOv) ints) with cp.async when it lies inside
+// s[0, s_len), and commits the copy as one group; returns whether it lies
+// inside (nothing is read if not).  Wait with cp_async_wait<0>() and a
+// barrier before reading the band.
+__device__ __forceinline__ bool load_band_async(int* band, const int* s,
+                                                long long s_len, int row_off,
+                                                int tile) {
+    const long long start = static_cast<long long>(row_off) * kLanes;
+    const bool in_range = row_off >= 0 && start + tile + kOv <= s_len;
+    if (in_range) cp_async_padded(band, s + start, tile + kOv);
+    cp_async_commit();
+    return in_range;
+}
+
+// The sum of the thread's keys below MAXI32 (padding left out), in int64.
+template <int E>
+__device__ __forceinline__ long long key_sum(const int (&x)[E]) {
+    long long sum = 0;
+#pragma unroll
+    for (int j = 0; j < E; ++j) sum += x[j] != kMaxI32 ? x[j] : 0;
+    return sum;
+}
+
+// The narrow-band count of one tile, from its blocked keys x (E a thread,
+// P threads) and its band, landed in shared memory: the equal-key pairs
+// (keys < PACK_LIMIT) of every tile key against band[0, T) and of the
+// tile's last kOv keys against the overhang band[T, T + kOv), each
+// thread's keys by count_chunk; then the certificate
+//   ok = need <= T/128 || (mx_pre < ovh_min && need <= T/128 + OV_ROWS)
+// (mx_pre: the max of tile row T/128 - OV_ROWS - 1, taken from the
+// registers of the threads that hold it, so it is exact on an unsorted
+// tile too; ovh_min = band[T], the overhang's first row being sorted).
+// The count is the TPU merge's count wherever the tile is sorted.  Thread 0
+// writes *count = ok ? pairs : 0, *flag = 0 (ok), 1 (recount exactly) or 2
+// (band outside S: nothing was read), and the block's totals of the
+// threads' sums a and b to *sum_a and, unless it is null, *sum_b.
+template <int E, int P>
+__device__ void narrow_count_regs(const int (&x)[E], const int* band,
+                                  bool in_range, int need, long long a,
+                                  long long b, long long* count, int* flag,
+                                  long long* sum_a, long long* sum_b) {
+    __shared__ long long part[3][kMaxWarps];
+    __shared__ int part_mx[kMaxWarps];
+    constexpr int kT = E * P;
+    constexpr int kPreLo = kT - kOv - kLanes;   // the row before the overhang's
+    static_assert(kPreLo % E == 0, "a thread's keys lie in the row or not");
+    const int first = threadIdx.x * E;
+    int mx_pre = kMinI32;
+    if (first >= kPreLo && first < kPreLo + kLanes) {
+#pragma unroll
+        for (int j = 0; j < E; ++j) mx_pre = max(mx_pre, x[j]);
+    }
+    long long cnt = 0;
+    if (in_range) {
+        cnt = count_chunk(x, band, kT, at(band, 0), at(band, kT - 1));
+        if (first >= kT - kOv) {
+            const int* ovh = band + padded_chunk(kT);
+            cnt += count_chunk(x, ovh, kOv, at(ovh, 0), at(ovh, kOv - 1));
+        }
+    }
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    cnt = warp_sum(cnt);
+    a = warp_sum(a);
+    b = warp_sum(b);
+    mx_pre = warp_max(mx_pre);
+    if (lane == 0) {
+        part[0][warp] = cnt;
+        part[1][warp] = a;
+        part[2][warp] = b;
+        part_mx[warp] = mx_pre;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        for (int w = 1; w < P / 32; ++w) {
+            cnt += part[0][w];
+            a += part[1][w];
+            b += part[2][w];
+            mx_pre = max(mx_pre, part_mx[w]);
+        }
+        constexpr int kRows = kT / kLanes;
+        const bool ok = in_range &&
+            (need <= kRows || (mx_pre < at(band, kT) && need <= kRows + kOvRows));
+        *count = ok ? cnt : 0;
+        *flag = in_range ? (ok ? 0 : 1) : 2;
+        *sum_a = a;
+        if (sum_b) *sum_b = b;
     }
 }
 

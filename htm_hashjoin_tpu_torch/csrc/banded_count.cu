@@ -42,7 +42,8 @@
 //     search over the chunk, and each next key gallops from where the last
 //     one ended (a few steps where the tile and chunk interleave, as in a
 //     merge); a repeated key reuses the last count, and a key outside the
-//     chunk's [first, last] is not searched.  On the wide band the
+//     chunk's [first, last] is not searched (count_chunk in
+//     banded_common.cuh, which K1 and K5 share).  On the wide band the
 //     searches, not the bytes, bound the kernel; searching 2-8 keys in
 //     lockstep by halving steps, two binary searches a key on
 //     lane-consecutive keys (the first port's way), walking word by word
@@ -55,105 +56,6 @@ namespace {
 
 constexpr int kItemChunks = 8;   // chunks an item (ops/banded_count.ITEM_CHUNKS)
 constexpr int kKeysPerThread = 16;
-
-// A chunk sits in shared memory with 4 words of padding after every 32
-// (16-byte copies stay aligned): a warp's searches for keys 16 apart in the
-// tile land 16-32 words apart in a dense chunk, which would hit 1-2 of the
-// 32 banks; padded, they spread over 8-16.  (One word in 32, copied 4 bytes
-// at a time, spreads them over all 32 and measured slower.)
-__device__ __forceinline__ int at(const int* chunk, int p) {
-    return chunk[p + 4 * (p >> 5)];
-}
-
-__host__ __device__ constexpr int padded_chunk(int tile) {
-    return tile + tile / 8;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
-                 ::"r"(dst), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
-}
-
-__device__ __forceinline__ bool before(int x, int key, bool strict) {
-    return x < key || (strict && x == key);
-}
-
-// First index in the padded chunk a[from, n) whose key is >= key (> key
-// when strict), where every key before from is below it: exponential
-// steps, then a binary search over the last step.
-__device__ __forceinline__ int gallop(const int* a, int from, int n, int key,
-                                      bool strict) {
-    int lo = from, hi = n;
-    for (int step = 1;; step <<= 1) {
-        const int idx = lo + step - 1;
-        if (idx >= n) break;
-        if (before(at(a, idx), key, strict)) {
-            lo = idx + 1;
-        } else {
-            hi = idx;
-            break;
-        }
-    }
-    while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (before(at(a, mid), key, strict)) {
-            lo = mid + 1;
-        } else {
-            hi = mid;
-        }
-    }
-    return lo;
-}
-
-// First index in the padded chunk a[0, n) whose key is >= key.
-__device__ __forceinline__ int lower_bound(const int* a, int n, int key) {
-    int lo = 0, hi = n;
-    while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (at(a, mid) < key) {
-            lo = mid + 1;
-        } else {
-            hi = mid;
-        }
-    }
-    return lo;
-}
-
-// Pairs of the thread's ascending keys x with the sorted, padded chunk[0, n)
-// whose keys span [lo, hi].
-__device__ __forceinline__ long long count_chunk(
-        const int (&x)[kKeysPerThread], const int* chunk, int n, int lo,
-        int hi) {
-    long long cnt = 0;
-    int pos = -1;    // where the last searched key's run ended
-    int last = 0;    // that run's length
-#pragma unroll
-    for (int j = 0; j < kKeysPerThread; ++j) {
-        const int k = x[j];
-        if (k < lo || k > hi || k >= kPackLimit) continue;
-        if (j > 0 && k == x[j > 0 ? j - 1 : 0]) {   // x[j - 1] was counted
-            cnt += last;
-            continue;
-        }
-        const int l = pos < 0 ? lower_bound(chunk, n, k)
-                              : gallop(chunk, pos, n, k, false);
-        const int u = gallop(chunk, l, n, k, true);
-        last = u - l;
-        pos = u;
-        cnt += last;
-    }
-    return cnt;
-}
 
 // The tile of extra item e: the first t with extra_end[t] > e.
 __device__ __forceinline__ int extra_tile(const long long* extra_end,
@@ -222,11 +124,8 @@ __device__ __forceinline__ void count_item(
     auto prefetch = [&](int c) {
         const int lo = ends[2 * c];
         if (lo != ends[2 * c + 1] && lo < kPackLimit) {
-            const int* src = band + static_cast<long long>(c) * tile;
-            int* dst = bufs + (c & 1) * padded_chunk(tile);
-            for (int i = threadIdx.x; i < tile / 4; i += blockDim.x) {
-                cp_async16(dst + 4 * i + 4 * (i >> 3), src + 4 * i);
-            }
+            cp_async_padded(bufs + (c & 1) * padded_chunk(tile),
+                            band + static_cast<long long>(c) * tile, tile);
         }
         cp_async_commit();
     };

@@ -30,17 +30,19 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..constants import INT32_MIN, LANES, MAXI32, OV_ROWS
+from ..constants import LANES, MAXI32, OV_ROWS
 from ..ops.banded_count import banded_count
 from ..ops.banded_count_narrow import banded_count_narrow
 from ..ops.fused_sort_count import fused_sort_count
 from ..ops.global_sort import global_sort_tiles
 from ..ops.probe import segmented_count_tagged
 from ..ops.sort_tiles import sort_tiles, tile_stats
+from ..ops.tile_minmax import tile_minmax
 
 # The JAX package's 65536-key tile is 256 KB of int32, more than a thread
-# block's 227 KB of shared memory; 8192 keys plus a 9216-key band fit in
-# about 68 KB (three blocks an SM), and 2^27 keys give 16384 tiles.
+# block's 227 KB of shared memory; at 8192 keys K1's two exchange buffers,
+# which take the padded 9216-key band after the sort, fit in about 66 KB
+# (three blocks an SM), and 2^27 keys give 16384 tiles.
 DEFAULT_TILE = 8192
 MAX_CHUNKS_DEFAULT = 16   # the general count's inline band budget, as in JAX
 
@@ -90,15 +92,6 @@ def sort_probe_side(skeys: torch.Tensor, tile: int = DEFAULT_TILE,
             _end_pad(s_sorted, tile, max_chunks))
 
 
-def _tile_minmax(r_flat: torch.Tensor, tile: int):
-    """Per-tile [min, max without padding] of the UNSORTED input; a fully
-    padded tile's max is INT32_MIN."""
-    tiles = r_flat.view(-1, tile)
-    mins = tiles.amin(1)
-    maxs = torch.where(tiles == MAXI32, INT32_MIN, tiles).amax(1)
-    return mins, maxs
-
-
 def _slice_offsets(skeys_sorted: torch.Tensor, mins: torch.Tensor,
                    maxs: torch.Tensor):
     """Each tile's S band [off, end): the first S key >= min and the first
@@ -118,9 +111,11 @@ def _rows(off: torch.Tensor, end: torch.Tensor):
 
 
 def band_rows(r_flat: torch.Tensor, skeys_sorted: torch.Tensor, tile: int):
-    """K1's band geometry for every tile of the unsorted, padded build side:
-    (off, end, row_off, rows_needed), in 128-key rows for the last two."""
-    off, end = _slice_offsets(skeys_sorted, *_tile_minmax(r_flat, tile))
+    """K1's band geometry for every tile of the unsorted, padded build side,
+    from the sort-invariant per-tile [min, max without padding]
+    (``tile_minmax``): (off, end, row_off, rows_needed), in 128-key rows
+    for the last two."""
+    off, end = _slice_offsets(skeys_sorted, *tile_minmax(r_flat, tile))
     return (off, end, *_rows(off, end))
 
 
@@ -276,7 +271,9 @@ def _banded_join_device(r_flat, s_padded, skeys_sorted, *, tile: int,
     """The whole join as one asynchronous device chain; nothing here
     synchronises.  Narrow unsorted plans run K1 on band offsets from the
     unsorted tiles' min/max; the others sort first (K2, or nothing for
-    ``method == "presorted"``), then count with K5 (narrow) or K4.
+    ``method == "presorted"``), then count with K5 (narrow) or K4.  On the
+    narrow plans the key sums come from K1's or K5's per-tile sums, so
+    only the prepass and K1 (or K5) read R there.
 
     Returns (matches, violations, flagged tiles, out_sum, in_sum,
     sorted_flat, off, end, flags): five int64 scalars, then tensors; flags
@@ -284,10 +281,12 @@ def _banded_join_device(r_flat, s_padded, skeys_sorted, *, tile: int,
     if narrow and method != "presorted":
         off, end, row_off, rows_needed = band_rows(r_flat, skeys_sorted,
                                                    tile)
-        sorted_flat, stats, counts, flags = fused_sort_count(
-            r_flat, s_padded, row_off, rows_needed, tile=tile, method=method,
-            passes=max(1, passes))
+        (sorted_flat, stats, counts, flags, in_sums,
+         out_sums) = fused_sort_count(r_flat, s_padded, row_off, rows_needed,
+                                      tile=tile, method=method,
+                                      passes=max(1, passes))
         viols = stats[:, 2]
+        out_sum, in_sum = _sum_i64(out_sums), _sum_i64(in_sums)
     else:
         if method == "presorted":     # globally sorted input is tile-sorted
             sorted_flat = r_flat
@@ -298,10 +297,11 @@ def _banded_join_device(r_flat, s_padded, skeys_sorted, *, tile: int,
             mins, maxs, viols = stats[:, 0], stats[:, 1], stats[:, 2]
         off, end = _slice_offsets(skeys_sorted, mins, maxs)
         row_off, rows_needed = _rows(off, end)
-        if narrow:
-            counts, flags = banded_count_narrow(sorted_flat, s_padded,
-                                                row_off, rows_needed,
-                                                tile=tile)
+        if narrow:   # presorted: r_flat is the tensor K5 counts
+            counts, flags, sums = banded_count_narrow(sorted_flat, s_padded,
+                                                      row_off, rows_needed,
+                                                      tile=tile)
+            out_sum = in_sum = _sum_i64(sums)
         else:
             n_chunks = _n_chunks(rows_needed, tile)
             bad = n_chunks > max_chunks
@@ -309,9 +309,9 @@ def _banded_join_device(r_flat, s_padded, skeys_sorted, *, tile: int,
                                           torch.where(bad, 0, n_chunks),
                                           tile=tile)
             flags = torch.where(status != 0, status, bad.to(torch.int32))
+            out_sum, in_sum = _key_sum(sorted_flat), _key_sum(r_flat)
     return (_sum_i64(counts), _sum_i64(viols), _sum_i64(flags > 0),
-            _key_sum(sorted_flat), _key_sum(r_flat), sorted_flat, off, end,
-            flags)
+            out_sum, in_sum, sorted_flat, off, end, flags)
 
 
 def _prepare_join(rkeys, skeys_sorted, *, tile, locality_window, presort,

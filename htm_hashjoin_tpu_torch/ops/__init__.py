@@ -4,6 +4,6 @@ K3 ``global_sort``, K4 ``banded_count``, K5 ``banded_count_narrow``, K6
 ``scatter_tiles``, K7a ``sort_kv_tiles``, K7 ``global_sort_kv``; K3 and K7
 launch the radix sort of ``radix_sort``), the tile sorters' plain forms
 (``sorters``), the multipass radix partition around K2 and K6
-(``radix_kernels``), the sort route's MSB partition and tagged probe
-(``partition``, ``probe``), the wrappers' shared checks (``_args``) and the
+(``radix_kernels``), K1's band prepass (``tile_minmax``), the sort route's
+MSB partition and tagged probe (``partition``, ``probe``), the wrappers' shared checks (``_args``) and the
 nvcc build (``_build``)."""

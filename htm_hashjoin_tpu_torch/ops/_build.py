@@ -100,11 +100,13 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     signatures = {
-        "htm_fused_sort_count": [p, p, i64, p, p, p, p, p, p, i, i, i, i, p],
+        "htm_fused_sort_count": [p, p, i64, p, p, p, p, p, p, p, p, i, i, i,
+                                 i, p],
+        "htm_tile_minmax": [p, p, p, i, i, p],
         "htm_sort_tiles": [p, p, p, i, i, i, i, p],
         "htm_radix_sort_keys": [p, p, p, p, i64, i64, p],
         "htm_banded_count": [p, p, i64, p, p, p, i, p, p, i, p],
-        "htm_banded_count_narrow": [p, p, i64, p, p, p, p, i, i, p],
+        "htm_banded_count_narrow": [p, p, i64, p, p, p, p, p, i, i, p],
         "htm_scatter_tiles": [p, p, p, p, i64, i, i, i, p],
         "htm_sort_kv_tiles": [p, p, p, p, i, i, i, p],
         "htm_radix_sort_pairs": [p, p, p, p, p, p, p, i64, i64, p],

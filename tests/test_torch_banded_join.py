@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from htm_hashjoin_tpu.joins import pallas_backend as jpb
+from htm_hashjoin_tpu_torch.constants import INT32_MIN
 from htm_hashjoin_tpu_torch.joins import banded_backend as tpb
 
 TILE = 2048
@@ -112,7 +113,7 @@ def test_band_geometry_matches_jax():
     np.testing.assert_array_equal(r_flat.numpy(), np.asarray(r2d).reshape(-1))
     np.testing.assert_array_equal(tpb.prepare_probe_side(s_t, TILE).numpy(),
                                   np.asarray(s2d).reshape(-1))
-    t_mins, t_maxs = tpb._tile_minmax(r_flat, TILE)
+    t_mins, t_maxs = tpb.tile_minmax(r_flat, TILE)
     np.testing.assert_array_equal(t_mins.numpy(), np.asarray(mins))
     np.testing.assert_array_equal(t_maxs.numpy(), np.asarray(maxs))
     t_off, t_end, row_off, rows_needed = tpb.band_rows(r_flat, s_t, TILE)
@@ -132,8 +133,8 @@ def test_fully_padded_tile_gets_an_empty_band():
                         torch.full((TILE,), tpb.MAXI32, dtype=torch.int32)])
     _, _, row_off, rows_needed = tpb.band_rows(r_flat, keys, TILE)
     assert row_off.tolist() == [0, 0] and rows_needed.tolist() == [1, 0]
-    mins, maxs = tpb._tile_minmax(r_flat, TILE)
-    assert mins[1] == tpb.MAXI32 and maxs[1] == tpb.INT32_MIN
+    mins, maxs = tpb.tile_minmax(r_flat, TILE)
+    assert mins[1] == tpb.MAXI32 and maxs[1] == INT32_MIN
 
 
 @pytest.mark.parametrize("window", [None, 0, 1, 4, 8, 9, 16, 512, 513, 1024,

@@ -1,6 +1,7 @@
-"""The CUDA kernels (K1 fused sort + count, K2 tile sort, K3 global sort,
-K4 general count, K5 narrow count, K6 radix scatter, K7 key-value global
-sort) against their plain torch versions on the card, exactly, the join
+"""The CUDA kernels (K1 fused sort + count and its band prepass, K2 tile
+sort, K3 global sort, K4 general count, K5 narrow count, K6 radix scatter,
+K7 key-value global sort) against their plain torch versions on the card,
+exactly, the join
 plans that run them, the multipass radix join and one CLI run per path the
 planner chooses; K7a (the TPU's kv phase A, unstable) by the multiset rule
 within each tile, the Wisconsin kv split and three multijoin confs at a cut
@@ -39,6 +40,7 @@ from htm_hashjoin_tpu_torch.ops import radix_sort as rs
 from htm_hashjoin_tpu_torch.ops import scatter_tiles as sct
 from htm_hashjoin_tpu_torch.ops import sort_kv_tiles as skv
 from htm_hashjoin_tpu_torch.ops import sort_tiles as st
+from htm_hashjoin_tpu_torch.ops import tile_minmax as tmm
 
 pytestmark = pytest.mark.gpu
 
@@ -71,10 +73,133 @@ def test_kernel_matches_plain(dev, tile, method, passes, window):
     torch.cuda.synchronize()
     assert fsc.LAUNCHES == before + 1
     want = fsc.fused_sort_count_ref(*args, **kw)
-    for g, w in zip((got[0], got[1], got[3]), (want[0], want[1], want[3])):
-        assert torch.equal(g, w)
+    assert_k1_equal(got, want)
+
+
+def assert_k1_equal(got, want):
+    """K1 against its plain version: sorted tiles, stats, flags and both
+    key sums bit for bit; counts on the tiles left without inversions."""
+    for k in (0, 1, 3, 4, 5):
+        assert torch.equal(got[k], want[k]), k
     exact = want[1][:, 2] == 0
     assert torch.equal(got[2][exact], want[2][exact])
+
+
+K1_KINDS = ["duplicate runs", "run in the overhang", "pack limit",
+            "negatives and INT32_MIN", "all MAXI32 tile",
+            "oddeven too few passes", "6000-copy S run"]
+
+
+def k1_kind(kind, tile, dev):
+    """(unsorted R, sorted S, method, passes) of 4 tiles, each kind an edge
+    of the register count: runs straddling a thread's E keys and a warp's
+    32E; a run among a tile's last OV keys whose S copies straddle band
+    position T (256 extra S keys a tile keep the bands row-aligned); keys at
+    PACK_LIMIT and above; negatives with INT32_MIN; a tile of MAXI32 only;
+    an odd-even sort with too few passes (inversions left); an S run of
+    6000 copies that flags its tile."""
+    n = 4 * tile
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(tile)
+    keys = torch.arange(1, n + 1, dtype=torch.int32, device=dev)
+
+    def shuffle(x, window):   # each key moved less than window places
+        jitter = torch.randint(0, window, (x.numel(),), generator=gen,
+                               device=dev)
+        order = torch.sort(torch.arange(x.numel(), device=dev) + jitter,
+                           stable=True).indices
+        return x[order]
+
+    if kind == "duplicate runs":
+        r = torch.repeat_interleave(keys, torch.randint(
+            1, 12, (n,), generator=gen, device=dev))[:n].clone()
+        warp_keys = 32 * (tile // 512 if tile <= 8192 else 16)
+        r[warp_keys - 150:warp_keys + 150] = r[warp_keys - 150]
+        s = torch.sort(torch.cat([torch.arange(1, int(r.max()) + 1,
+                                               dtype=torch.int32, device=dev),
+                                  r[::3]])).values
+        return shuffle(r, 8), s, "blocks", 8
+    if kind == "run in the overhang":
+        r, extra = keys.clone(), []
+        for t in range(4):
+            k = int(r[t * tile + tile - 100])
+            r[t * tile + tile - 110:t * tile + tile - 90] = k
+            extra.append(torch.full((256,), k, dtype=torch.int32, device=dev))
+        s = torch.sort(torch.cat([keys] + extra)).values
+        return shuffle(r, 16), s, "blocks", 16
+    if kind == "pack limit":
+        high = torch.cat([(1 << 29) + torch.arange(400, device=dev),
+                          torch.full((100,), MAXI32 - 1, device=dev)]).int()
+        r = torch.sort(torch.cat([keys[:n - 500], high])).values
+        s = torch.sort(torch.cat([r, high])).values
+        return shuffle(r, 4), s, "oddeven", 4
+    if kind == "negatives and INT32_MIN":
+        r = torch.sort(torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
+                                     device=dev, dtype=torch.int32)).values
+        r[:50] = -2**31
+        s = torch.sort(torch.cat([r[::2], torch.full(
+            (30,), -2**31, dtype=torch.int32, device=dev)])).values
+        return shuffle(r, 512), s, "bitonic", 1
+    if kind == "all MAXI32 tile":
+        r = shuffle(keys, 16)
+        r[tile:2 * tile] = MAXI32
+        return r, keys, "blocks", 16
+    if kind == "oddeven too few passes":
+        return shuffle(keys, 64), keys, "oddeven", 1
+    s = torch.sort(torch.cat([keys, torch.full((6000,), 100,
+                                               dtype=torch.int32,
+                                               device=dev)])).values
+    return shuffle(keys, 8), s, "oddeven", 8
+
+
+@pytest.mark.parametrize("tile", fsc.KERNEL_TILES)
+@pytest.mark.parametrize("kind", K1_KINDS)
+def test_k1_and_k5_edge_kinds_match_plain(dev, tile, kind):
+    """K1 on the kind's unsorted tiles, then K5 on the same tiles sorted,
+    each against its plain version."""
+    rkeys, skeys, method, passes = k1_kind(kind, tile, dev)
+    args = k1_inputs(rkeys, skeys, tile)
+    kw = dict(tile=tile, method=method, passes=passes)
+    got = fsc.fused_sort_count(*args, **kw)
+    torch.cuda.synchronize()
+    want = fsc.fused_sort_count_ref(*args, **kw)
+    assert_k1_equal(got, want)
+    viols = int(want[1][:, 2].sum())
+    assert (viols > 0) == (kind == "oddeven too few passes")
+    if kind == "6000-copy S run":
+        assert int(want[3][0]) == 1
+    if kind == "all MAXI32 tile":
+        assert got[1][1].tolist() == [MAXI32, -2**31, 0]
+        assert int(got[2][1]) == 0 and int(got[5][1]) == 0
+    sorted_r = torch.sort(args[0].view(-1, tile), dim=1).values.reshape(-1)
+    k5_args = (sorted_r,) + args[1:]
+    got5 = bcn.banded_count_narrow(*k5_args, tile=tile)
+    torch.cuda.synchronize()
+    want5 = bcn.banded_count_narrow_ref(*k5_args, tile=tile)
+    for g, w in zip(got5, want5):
+        assert torch.equal(g, w)
+    assert torch.equal(got5[2], want[4])
+
+
+@pytest.mark.parametrize("tile", [2048, 8192, 16384])
+@pytest.mark.parametrize("kind", ["padded", "padding tile", "negatives",
+                                  "one tile"])
+def test_tile_minmax_matches_plain(dev, tile, kind):
+    n = (1 if kind == "one tile" else 5) * tile
+    keys = sort_keys_of("negatives and INT32_MIN", n, dev, 6)
+    if kind == "padded":
+        keys = bb.to_tiles(keys[:n - 777], tile)
+    elif kind == "padding tile":
+        keys[tile:2 * tile] = MAXI32
+        keys[-1] = MAXI32
+    before = tmm.LAUNCHES
+    got = tmm.tile_minmax(keys, tile)
+    torch.cuda.synchronize()
+    assert tmm.LAUNCHES == before + 1
+    want = tmm.tile_minmax_ref(keys, tile)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if kind == "padding tile":
+        assert got[0][1] == MAXI32 and got[1][1] == -2**31
 
 
 def test_band_past_probe_end_is_flagged_not_read(dev):
@@ -82,8 +207,12 @@ def test_band_past_probe_end_is_flagged_not_read(dev):
     keys = sorted_keys(2 * tile, dev)
     r_flat, s_pad, row_off, rows_needed = k1_inputs(keys, keys, tile)
     row_off[1] = s_pad.numel() // 128 - 8        # band would run past the end
-    _, _, counts, flags = fsc.fused_sort_count(
+    _, _, counts, flags, in_sums, _ = fsc.fused_sort_count(
         r_flat, s_pad, row_off, rows_needed, tile=tile, method="bitonic")
+    assert flags.tolist() == [0, 2] and counts[1] == 0
+    assert int(in_sums.sum()) == 2 * tile * (2 * tile + 1) // 2
+    counts, flags, _ = bcn.banded_count_narrow(r_flat, s_pad, row_off,
+                                               rows_needed, tile=tile)
     assert flags.tolist() == [0, 2] and counts[1] == 0
     with pytest.raises(ValueError, match="prepare_probe_side"):
         bb.banded_join_pipelined(keys, keys, tile=tile, locality_window=16,
@@ -356,10 +485,12 @@ def test_k5_matches_plain_and_k1(dev, tile):
     torch.cuda.synchronize()
     assert bcn.LAUNCHES == before + 1
     want = bcn.banded_count_narrow_ref(*args, tile=tile)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
     assert int(got[1].max()) == 1                  # the heavy run's tiles
     k1 = fsc.fused_sort_count(*args, tile=tile, method="bitonic")
     assert torch.equal(k1[2], got[0]) and torch.equal(k1[3], got[1])
+    assert torch.equal(k1[4], got[2]) and torch.equal(k1[5], got[2])
 
 
 @pytest.mark.parametrize("kw", [

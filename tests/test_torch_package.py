@@ -21,6 +21,7 @@ from htm_hashjoin_tpu_torch.ops import global_sort_kv as gkv
 from htm_hashjoin_tpu_torch.ops import scatter_tiles as sct
 from htm_hashjoin_tpu_torch.ops import sort_kv_tiles as skv
 from htm_hashjoin_tpu_torch.ops import sort_tiles as st
+from htm_hashjoin_tpu_torch.ops import tile_minmax as tmm
 from htm_hashjoin_tpu_torch.relation import keys_from_numpy, tiles_from_numpy
 
 TILE = 2048
@@ -167,8 +168,8 @@ def test_library_name_follows_the_sources(tmp_path, monkeypatch):
 
 
 def other_kernel_calls(device="cpu"):
-    """(module, plain-version name, call) of K2-K6, K7a and K7 on 2
-    tiles."""
+    """(module, plain-version name, call) of K2-K6, K7a, K7 and K1's band
+    prepass on 2 tiles."""
     keys = torch.arange(2 * TILE, dtype=torch.int32, device=device)
     s = torch.arange((2 + 17) * TILE, dtype=torch.int32, device=device)
     zeros = torch.zeros(2, dtype=torch.int32, device=device)
@@ -189,10 +190,11 @@ def other_kernel_calls(device="cpu"):
          lambda: skv.sort_kv_tiles(keys, keys, tile=TILE, alternate=True)),
         (gkv, "global_sort_kv_ref",
          lambda: gkv.global_sort_kv_tiles(keys, keys, tile=TILE)),
+        (tmm, "tile_minmax_ref", lambda: tmm.tile_minmax(keys, TILE)),
     ]
 
 
-@pytest.mark.parametrize("k", range(7))
+@pytest.mark.parametrize("k", range(8))
 def test_other_kernels_plain_path_counts_no_launch(k):
     mod, _, call = other_kernel_calls()[k]
     before = (mod.LAUNCHES, st.LAUNCHES)
@@ -202,7 +204,7 @@ def test_other_kernels_plain_path_counts_no_launch(k):
     assert first.device.type == "cpu"
 
 
-@pytest.mark.parametrize("k", range(7))
+@pytest.mark.parametrize("k", range(8))
 def test_other_kernels_cuda_without_cuda_raise_and_never_run_plain(
         k, monkeypatch):
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -221,7 +223,7 @@ def test_other_kernels_cuda_without_cuda_raise_and_never_run_plain(
     assert mod.LAUNCHES == before
 
 
-@pytest.mark.parametrize("k", range(7))
+@pytest.mark.parametrize("k", range(8))
 def test_other_kernels_other_device_raises(k):
     with pytest.raises(ValueError, match="cpu or cuda"):
         other_kernel_calls("meta")[k][2]()
