@@ -63,7 +63,24 @@ Phases, one line each:
                 radix on the engine's sort plan and on the sort route (held
                 to a torch.unique count), mc PRO (PK x FK), htm --switchSniff
                 -> radix; each line's counts, sums, path and kernels checked;
- 10. wisconsin  - K7 (the key-value radix sort) against its plain version
+ 10. hash       - the hash-table joins and sortmerge: at 2^22 through
+                DISPATCH, nocc, atomic and htm with --backend xla on
+                sorted, shuffle and uniform keys (2^20 distinct), build-only
+                and probing, npo_st on PK x FK and nocc on random keys, each
+                line equal to the same call's line on the CPU but for the
+                times; then at 2^27 through cli.main the reference's own
+                points: AtomicsVsHTMVsNoCC (nocc, atomic, htm x sorted,
+                shuffle, build-only, no retry, --backend xla), probe.sh's
+                first point (local_shuffle w16, --backend xla), duplicates
+                (uniform, 2^24 distinct), mc NPO (the engine) and NPO_st
+                (the bucket build), sortmerge on shuffle (K3 + K5) and on
+                random (the plain route), atomic on auto (the engine); each
+                line held to an exact count (n, the s-size, or a
+                torch.unique count), conservation (nocc: outputSum and
+                matches at most the exact ones), zero conflicts on unique
+                keys and the plan's launches of every kernel (none on a
+                scatter build), with a profile of each scatter-build path;
+ 11. wisconsin  - K7 (the key-value radix sort) against its plain version
                 (stable sort + gather) on few-tile cases (one tile, two, 2^3
                 padded, 16 copies a key, rotation-packed keys with shard
                 bits, negatives, two values), exactly; K7a (the TPU's phase
@@ -123,12 +140,14 @@ from htm_hashjoin_tpu_torch.ops import scatter_tiles as sct
 from htm_hashjoin_tpu_torch.ops import sort_kv_tiles as skv
 from htm_hashjoin_tpu_torch.ops import sort_tiles as st
 from htm_hashjoin_tpu_torch.ops import tile_minmax as tmm
+from htm_hashjoin_tpu_torch.relation import Relation
 from htm_hashjoin_tpu_torch.wisconsin import parse_conf, run_multijoin
 from htm_hashjoin_tpu_torch.wisconsin import partitioner as wpart
 from htm_hashjoin_tpu_torch.wisconsin.driver import load_side
 
 TILE = 8192
 LOG2_N = 27
+HASH_LOG2_N = 22      # the scatter builds held to the CPU's lines
 WINDOW = 16
 CSRC = "htm_hashjoin_tpu_torch/csrc/"
 JOIN_KERNELS = "htm_hashjoin_tpu/ops/pallas/join_kernels.py"
@@ -1070,6 +1089,136 @@ def _cli_paths(dev, card) -> dict:
     return total
 
 
+def _untimed(line: dict) -> dict:
+    """A JSON line without its times (singleRunTimeInMicroseconds too)."""
+    return {k: v for k, v in line.items() if "Time" not in k}
+
+
+def _hash_lines_equal_the_cpu(dev) -> None:
+    """The scatter builds at 2^22 through DISPATCH, on the card and on the
+    CPU (the same keys, copied): the lines agree on every field but the
+    times, so the highest-row winner holds on the card."""
+    n = 1 << HASH_LOG2_N
+    uniform = dict(data_distr=Distribution.UNIFORM, distinct_keys=n >> 2)
+    cases = [(algo, dict(backend="xla", enable_probe=probing, **dist))
+             for algo in ("nocc", "atomic", "htm")
+             for dist in (dict(data_distr=Distribution.SORTED),
+                          dict(data_distr=Distribution.SHUFFLE), uniform)
+             for probing in (False, True)]
+    cases += [("npo_st", dict(data_distr=Distribution.PK,
+                              s_distr=Distribution.FK)),
+              ("nocc", dict(data_distr=Distribution.RANDOM))]
+    for algo, fields in cases:
+        cfg = JoinConfig(algo=Algo(algo), r_size=n, seed=13, **fields)
+        r, s = build_relations(cfg, dev)
+        probing = cfg.enable_probe
+        t0 = time.perf_counter()
+        got = DISPATCH[algo](r, s if probing else None, cfg).to_dict()
+        card_s = time.perf_counter() - t0
+        cpu_s = Relation(s.keys.cpu(), assume_sorted=s.assume_sorted)
+        want = DISPATCH[algo](Relation(r.keys.cpu()),
+                              cpu_s if probing else None, cfg).to_dict()
+        same = _untimed(got) == _untimed(want)
+        print(f"hash: 2^{HASH_LOG2_N} {algo} {fields}: card line equals the "
+              f"CPU's: {same}; matches {got.get('totalMatches')}, conflicts "
+              f"{got.get('conflicts', got.get('conflictCount'))}, "
+              f"outputSum {got['outputSum']} of {got['inputSum']}; card "
+              f"call {card_s:.4f} s")
+        _require(same and "backend" not in got,
+                 f"2^{HASH_LOG2_N} {algo} {fields}: card {got} != CPU "
+                 f"{want}")
+        del r, s, cpu_s
+    torch.cuda.empty_cache()
+
+
+def _hash_joins(dev, card) -> dict:
+    """The hash-table joins and sortmerge: the card against the CPU at
+    2^22, then the reference's own points at 2^27 through cli.main, each
+    line checked (exact matches, conservation or nocc's inequalities,
+    conflicts on unique keys, every kernel's launches), with a profile of
+    each scatter-build path."""
+    _hash_lines_equal_the_cpu(dev)
+    n = 1 << LOG2_N
+    total = dict.fromkeys(KERNELS, 0)
+    build_only = ["--noProbe", "--noRetry", "--probeLength", "4",
+                  "--backend", "xla"]
+    runs = []     # (argv, launches, a scatter build or the plain route)
+    for algo in ("nocc", "atomic", "htm"):       # AtomicsVsHTMVsNoCC
+        for dist in ("sorted", "shuffle"):
+            runs.append((["--algo", algo, "--dataDistr", dist,
+                          "--transactionSize",
+                          "1" if algo == "htm" else "16", *build_only],
+                         {}, True))
+    for algo in ("nocc", "atomic", "htm"):       # probe.sh's first point
+        runs.append((["--algo", algo, "--backend", "xla", "--dataDistr",
+                      "local_shuffle", "--shuffleRange", "16"], {}, True))
+    for algo in ("nocc", "atomic"):              # duplicates, 2^24 distinct
+        runs.append((["--algo", algo, "--dataDistr", "uniform",
+                      "--distinctKeys", str(n >> 3)], {}, True))
+    runs += [
+        (["--algo", "htm", "--dataDistr", "uniform", "--distinctKeys",
+          str(n >> 3)], {"global_sort_tiles": 1, "banded_count": 1}, False),
+        (["--algo", "NPO", "-r", str(n), "-s", str(n)],
+         {"global_sort_tiles": 2, "banded_count_narrow": 1}, False),
+        (["--algo", "NPO_st", "-r", str(n), "-s", str(n)], {}, True),
+        (["--algo", "sortmerge", "--dataDistr", "shuffle"],
+         {"global_sort_tiles": 1, "banded_count_narrow": 1}, False),
+        (["--algo", "sortmerge", "--dataDistr", "random"],
+         {"global_sort_tiles": 2}, True),
+        (["--algo", "atomic", "--dataDistr", "shuffle"],
+         {"global_sort_tiles": 1, "banded_count_narrow": 1}, False),
+    ]
+    for argv, launches, scatter in runs:
+        if "-r" not in argv:
+            argv = argv + ["--rSize", str(n)]
+        res = {}
+        counts = _run_path(f"cli {' '.join(argv)}",
+                           lambda: res.setdefault("d", _cli_line(argv, dev)),
+                           launches, card)
+        d = res["d"]
+        for k, v in counts.items():
+            total[k] += v
+        cfg, _ = cli.parse_args(argv)
+        algo = cfg.algo.value
+        if cfg.s_distr == Distribution.FK:
+            exact = cfg.s_size                       # PK x FK
+        elif cfg.data_distr == Distribution.RANDOM:
+            r, _ = build_relations(cfg, dev)         # S is a copy of R
+            _, mult = torch.unique(r.keys, return_counts=True)
+            exact = int((mult.long() ** 2).sum())
+            del r, mult
+        else:
+            exact = n                  # each R key meets one key of 1..n
+        conflicts = d.get("conflicts", d.get("conflictCount"))
+        unique = cfg.data_distr.value in ("sorted", "shuffle",
+                                          "local_shuffle", "pk")
+        if algo == "nocc":
+            ok = d["outputSum"] <= d["inputSum"] and (
+                not cfg.enable_probe or d["totalMatches"] <= exact)
+            if unique:    # no key collides under key & (2n - 1)
+                ok = ok and d["outputSum"] == d["inputSum"]
+        else:
+            ok = d["outputSum"] == d["inputSum"] and (
+                not cfg.enable_probe or d["totalMatches"] == exact)
+        ok = ok and (conflicts == 0 or not unique) and (
+            ("backend" not in d) == scatter)
+        ok = ok and all(counts[k] == launches.get(k, 0) for k in counts)
+        print(f"hash: {' '.join(argv)}: matches {d.get('totalMatches')} "
+              f"(exact {exact if cfg.enable_probe else '-'}), conflicts "
+              f"{conflicts}, outputSum {d['outputSum']} of {d['inputSum']}, "
+              f"build {d['hashBuildTimeInMicroseconds']:.1f} us, probe "
+              f"{d.get('probeTimeInMicroseconds')} us [{card}]")
+        _require(ok, f"cli {argv}: {d}; launches {counts}")
+        if scatter:
+            # the join alone, relations already on the card
+            r, s = build_relations(cfg, dev)
+            _profile(f"cli {' '.join(argv)}",
+                     lambda: DISPATCH[algo](r, s, cfg), card)
+            del r, s
+        torch.cuda.empty_cache()
+    return total
+
+
 def _pairs(a, b):
     """(a, b) int32 pairs as sorted int64 composites: a multiset."""
     return torch.sort((a.long() << 32) | (b.long() & 0xFFFFFFFF)).values
@@ -1420,10 +1569,10 @@ def main() -> int:
     # 6-7. every other path at 2^27, then K2-K5 at their paths' shapes
     counts = _paths(dev, card, errs, times)
     counts["fused_sort_count"] += main_counts["fused_sort_count"]
-    # 8-10. K6 and the multipass radix join, the CLI's paths, then K7 and
-    # the Wisconsin multijoin
+    # 8-11. K6 and the multipass radix join, the CLI's paths, the hash
+    # joins, then K7 and the Wisconsin multijoin
     for more in (_radix(dev, card, errs, times), _cli_paths(dev, card),
-                 _wisconsin(dev, card, errs, times)):
+                 _hash_joins(dev, card), _wisconsin(dev, card, errs, times)):
         for k, v in more.items():
             counts[k] += v
     for name in KERNELS:

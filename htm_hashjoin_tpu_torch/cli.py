@@ -7,10 +7,12 @@ schema (HTMHashBuild.hpp:417-449).  The relations are made on a CUDA
 device; ``main(argv, device=torch.device("cpu"))`` runs the kernels' plain
 versions instead (the tests do).
 
-Not ported yet, and refused with ``NotImplementedError``: ``--meshShape``
-(ROADMAP queue 1 item 10), ``--profile``, ``--counters`` and
-``--throughput`` (item 9), and the algorithms other than htm, radix and
-adaptive (item 7).
+Every ``--algo`` name runs, the mc names (``NPO``, ``NPO_st``, ``PRO``
+...) included, and so does ``--backend xla`` (the scatter builds).  Not
+ported yet, and refused with ``NotImplementedError``: ``--meshShape``
+(ROADMAP queue 1, "Distributed"), ``--profile``, ``--counters`` and
+``--throughput`` (queue 1, "Profiler, counters, microbenchmarks,
+harness").
 
 Usage:
     python -m htm_hashjoin_tpu_torch.cli --algo htm --rSize $((2**20)) --dataDistr local_shuffle
@@ -182,12 +184,14 @@ def main(argv=None, device=None) -> int:
     cfg, (profile_dir, want_throughput, counters) = parse_args(argv)
     if cfg.mesh_shape:
         raise NotImplementedError("--meshShape: the distributed join is not "
-                                  "ported yet (ROADMAP queue 1 item 10)")
+                                  "ported yet (ROADMAP queue 1, "
+                                  "Distributed)")
     for flag, used in (("--profile", profile_dir), ("--counters", counters),
                        ("--throughput", want_throughput)):
         if used:
-            raise NotImplementedError(f"{flag}: the profiler is not ported "
-                                      f"yet (ROADMAP queue 1 item 9)")
+            raise NotImplementedError(
+                f"{flag}: the profiler is not ported yet (ROADMAP queue 1, "
+                f"Profiler, counters, microbenchmarks, harness)")
     r, s = build_relations(cfg, _device(device))
     r.fence(), s.fence()   # generation is not part of the timed join phases
     metrics = DISPATCH[cfg.algo.value](r, s, cfg)

@@ -1,6 +1,5 @@
-"""Joins of the port: the banded engine, and the algorithms the CLI
-dispatches to (``DISPATCH``).  htm, radix and adaptive are ported; the
-other five names raise ``NotImplementedError`` until their module is."""
+"""Joins of the port: the banded engine, and the eight algorithms the CLI
+dispatches to (``DISPATCH``)."""
 
 from .banded_backend import (BandedBuild, BandedJoinOutcome,
                              banded_build_from_sorted, banded_build_pipelined,
@@ -8,29 +7,22 @@ from .banded_backend import (BandedBuild, BandedJoinOutcome,
                              enqueue_banded_build, enqueue_banded_join,
                              enqueue_full_join, prepare_probe_side,
                              sort_probe_side, tagged_count)
+from .nocc import nocc_join
+from .atomic import atomic_join
 from .htm import htm_join
 from .radix import radix_join
+from .sortmerge import sortmerge_join
+from .npo import npo_join, npo_st_join
 from .adaptive import adaptive_join
 
-
-def _not_ported(algo: str):
-    def join(r, s=None, cfg=None):
-        raise NotImplementedError(
-            f"--algo {algo} is not ported yet: ROADMAP queue 1 item 7 "
-            f"(joins/{'npo' if algo.startswith('npo') else algo}.py and "
-            f"ops/insert.py)")
-    join.__name__ = f"{algo}_join"
-    return join
-
-
 DISPATCH = {
-    "nocc": _not_ported("nocc"),
-    "atomic": _not_ported("atomic"),
+    "nocc": nocc_join,
+    "atomic": atomic_join,
     "htm": htm_join,
     "radix": radix_join,
-    "sortmerge": _not_ported("sortmerge"),
-    "npo": _not_ported("npo"),
-    "npo_st": _not_ported("npo_st"),
+    "sortmerge": sortmerge_join,
+    "npo": npo_join,
+    "npo_st": npo_st_join,
     "adaptive": adaptive_join,
 }
 
@@ -38,4 +30,6 @@ __all__ = ["BandedBuild", "BandedJoinOutcome", "banded_build_from_sorted",
            "banded_build_pipelined", "banded_join_pipelined", "banded_probe",
            "enqueue_banded_build", "enqueue_banded_join", "enqueue_full_join",
            "prepare_probe_side", "sort_probe_side", "tagged_count",
-           "htm_join", "radix_join", "adaptive_join", "DISPATCH"]
+           "nocc_join", "atomic_join", "htm_join", "radix_join",
+           "sortmerge_join", "npo_join", "npo_st_join", "adaptive_join",
+           "DISPATCH"]

@@ -1,5 +1,6 @@
 """Shared join-phase machinery: routing, the banded engine's planner, the
-displacement sniff and dial, and the metrics schema.
+displacement sniff and dial, the scatter builds' spill, and the metrics
+schema.
 
 Counterpart of ``htm_hashjoin_tpu/joins/common.py``.  Every join runs the
 reference's phase protocol (build, then probe, with the host boundary as
@@ -9,10 +10,11 @@ branched between phases, on scalars read back in one bundle.
 Routing differs from the JAX package by design in one place: ``auto``
 means the banded engine on both devices (the kernels' plain versions on
 CPU tensors, the kernels on CUDA tensors), where JAX takes its XLA
-formulation on the CPU.  Not ported yet: ``SpillState``,
-``pallas_unique_join`` and ``route_unique_pallas`` (the atomic/nocc builds,
-ROADMAP queue 1 item 7), ``plan_traffic_bytes`` and ``_gsort_pass_count``
-(the ``--counters`` model, item 9).
+formulation on the CPU.  The scatter builds (``ops/insert.py``) therefore
+run where JAX's run on its TPU: with ``backend="xla"``, on duplicate build
+keys, and on keys at or above PACK_LIMIT.  Not ported yet:
+``plan_traffic_bytes`` and ``_gsort_pass_count``, the ``--counters`` model
+(ROADMAP queue 1, "Profiler, counters, microbenchmarks, harness").
 """
 
 from __future__ import annotations
@@ -25,9 +27,11 @@ import torch
 from ..config import Distribution, JoinConfig
 from ..constants import LANES, MAXI32, PACK_LIMIT
 from ..relation import Relation, next_pow2
+from ..ops import insert, probe, sortops
 from ..utils.metrics import JoinMetrics
 from ..utils.timing import PhaseTimer
 from .banded_backend import (DEFAULT_TILE, MAX_CHUNKS_DEFAULT,
+                             banded_build_pipelined, banded_join_pipelined,
                              enqueue_banded_build, enqueue_full_join,
                              prepare_probe_side)
 
@@ -63,27 +67,72 @@ def keys_unique_both(cfg: JoinConfig) -> bool:
     return False
 
 
+def table_size_for(cfg: JoinConfig) -> int:
+    """Flat-table size: scaleOutput x rSize rounded up to a power of two
+    (AtomicHashBuild.hpp:21-25)."""
+    return next_pow2(max(2, cfg.scale_output * cfg.r_size))
+
+
 def htm_num_buckets(r_size: int) -> int:
     """numBuckets = next_pow2(rSize/3 + 1) (HTMHashBuild.hpp:61-62)."""
     return next_pow2(r_size // 3 + 1)
 
 
+class SpillState:
+    """The tuples a scatter build did not place: the conflicts-array analog
+    (HTMHashBuild.hpp:79-83, AtomicHashBuild.hpp:62-63), kept searchable so
+    that the probe still sees every build tuple (the reference's probe
+    ignored its conflict arrays).
+
+    One readback gives the spill's count and key sum, and the values of the
+    device scalars ``head`` (the build's own sums), in ``self.head``.  Only
+    a non-empty spill is compacted and sorted (``insert.spill_sorted``),
+    so its probe counts exactly what the spill holds: the JAX package
+    searches an R-sized array padded with INT32_MAX (ROADMAP queue 3,
+    reference fault 8).  The probe searches the sorted spill for each S
+    key (``sortops.merge_count``), where JAX re-sorts both as tagged
+    composites."""
+
+    def __init__(self, keys: torch.Tensor, pending: torch.Tensor,
+                 timer: PhaseTimer, head=()):
+        stats = torch.stack([torch.sum(pending, dtype=torch.int64),
+                             probe.masked_sum(keys, pending),
+                             *(h.to(torch.int64) for h in head)]).tolist()
+        self.count, self.key_sum, *self.head = stats
+        self._spill: Optional[torch.Tensor] = None
+        if self.count > 0:
+            self._spill = timer.timed(
+                "spill", lambda: insert.spill_sorted(keys, pending)[0])
+
+    def probe_count(self, skeys: torch.Tensor, timer: PhaseTimer) -> int:
+        """Matches of ``skeys`` against the spill (multiset-exact)."""
+        if self._spill is None:
+            return 0
+        return int(timer.timed("probe_spill", sortops.merge_count,
+                               self._spill, skeys))
+
+
 def finish_metrics(m: JoinMetrics, timer: PhaseTimer,
-                   total_matches: Optional[int]) -> JoinMetrics:
-    """Fold a timed run into the metrics: build and probe phase times, the
-    match count, and the failure fractions (fractions despite the names,
-    the reference's own convention, HTMHashBuild.hpp:410-415).  The JAX
-    function also folds the spill phases and TM_RETRY's rule of its XLA
-    scatter build, which is not ported."""
-    m.hashBuildTimeInMicroseconds = timer.micros.get("build", 0.0)
-    if "probe" in timer.micros:
-        m.probeTimeInMicroseconds = timer.micros["probe"]
+                   total_matches: Optional[int],
+                   retry: bool = False) -> JoinMetrics:
+    """Fold a timed run into the metrics: the build phase (with the spill)
+    and the probe phase (with the spill's probe), the match count, and the
+    failure fractions (fractions despite the names, the reference's own
+    convention, HTMHashBuild.hpp:410-415); under TM_RETRY
+    totalFailedPercentage counts only the residual conflicts."""
+    micros = timer.micros
+    m.hashBuildTimeInMicroseconds = (micros.get("build", 0.0)
+                                     + micros.get("spill", 0.0))
+    if "probe" in micros or "probe_spill" in micros:
+        m.probeTimeInMicroseconds = (micros.get("probe", 0.0)
+                                     + micros.get("probe_spill", 0.0))
     if total_matches is not None:
         m.totalMatches = total_matches
     if m.rSize:
         m.failedTransactionPercentage = m.failedTransactions / m.rSize
-        m.totalFailedPercentage = ((m.failedTransactions + m.conflictCount)
-                                   / m.rSize)
+        m.totalFailedPercentage = (
+            m.conflictCount / m.rSize if retry else
+            (m.failedTransactions + m.conflictCount) / m.rSize)
     return m
 
 
@@ -124,6 +173,14 @@ def use_pallas_engine_build(cfg: JoinConfig) -> bool:
     if cfg.backend == "xla" or cfg.mesh_shape:
         return False
     return keys_are_unique(cfg) and _max_key_bound(cfg) < PACK_LIMIT
+
+
+def route_unique_pallas(cfg: JoinConfig, s: Optional[Relation]) -> bool:
+    """Routing of the identity-hash builds (atomic, nocc): the banded
+    engine only on generator-certified unique keys, probing or not."""
+    if s is not None and cfg.enable_probe:
+        return keys_are_unique(cfg) and use_pallas_engine(cfg, s)
+    return use_pallas_engine_build(cfg)
 
 
 class BandedPlan(NamedTuple):
@@ -278,6 +335,46 @@ def pallas_metrics(cfg: JoinConfig, algo: str, outcome, elapsed_us: float,
         m.totalFailedPercentage = (
             m.conflictCount / cfg.r_size if cfg.retry else
             (m.failedTransactions + m.conflictCount) / cfg.r_size)
+    return m
+
+
+def pallas_unique_join(algo: str, r: Relation, s: Optional[Relation],
+                       cfg: JoinConfig) -> JoinMetrics:
+    """The banded engine as the identity-hash builds (atomic, nocc) on
+    generator-certified unique build keys.  With unique keys the
+    open-addressing table at 2x load loses and spills nothing (keys 1..n
+    take distinct slots under key & (2n-1)), so conflicts and
+    failedTransactions are 0 in both formulations and the sorted-tile
+    engine gives the same line; an unsorted or duplicate-heavy S takes the
+    device sort and the general count.  The JAX function's ``--counters``
+    branch waits for the profiler port (ROADMAP queue 1, "Profiler,
+    counters, microbenchmarks, harness")."""
+    probing = s is not None and cfg.enable_probe
+    plan = pallas_plan(cfg, probing=probing)
+    t0 = time.perf_counter()
+    if probing:
+        out = banded_join_pipelined(r.keys, s.keys,
+                                    locality_window=plan.window,
+                                    presort=plan.presort,
+                                    presorted=plan.presorted,
+                                    narrow=plan.narrow,
+                                    sort_s=not s.assume_sorted,
+                                    unique_both=keys_unique_both(cfg))
+    else:
+        out = banded_build_pipelined(r.keys, locality_window=plan.window,
+                                     presort=plan.presort,
+                                     presorted=plan.presorted)
+    elapsed_us = (time.perf_counter() - t0) * 1e6
+    m = JoinMetrics(algo=algo, rSize=cfg.r_size,
+                    transactionSize=cfg.transaction_size,
+                    probeLength=cfg.probe_length,
+                    inputSum=out.input_sum, outputSum=out.output_sum,
+                    hashBuildTimeInMicroseconds=elapsed_us)
+    if probing:
+        m.totalMatches = out.matches
+    m.extra["backend"] = "pallas_banded"
+    m.extra["resorted"] = out.resorted
+    maybe_pipeline_timing(m, cfg, plan, r, s if probing else None, out)
     return m
 
 

@@ -1,16 +1,22 @@
-"""HTM join: the headline locality-exploiting build, on the banded engine.
+"""HTM join: the headline locality-exploiting build.
 
 Counterpart of ``htm_hashjoin_tpu/joins/htm.py`` (reference
-HTMHashBuild.hpp:54-464).  The engine's optimistic tile sort is the
-transaction, sortedness violations are the aborts, the exact bitonic
-re-sort is TM_RETRY and band overflow is the conflicts spill; HTM_ADAPT is
-a real dial (the sniffed displacement picks the sorter), and HTM_SWITCH
-sends data without locality to the radix join.
+HTMHashBuild.hpp:54-464).  Two formulations, routed as in
+``joins/common.py``:
 
-The JAX package's XLA scatter build (``insert.htm_optimistic_build`` with
-its claim rounds and spill) needs ``ops/insert.py``, which is not ported
-yet (ROADMAP queue 1 item 7): joins that would take it raise
-``NotImplementedError``.
+  * the banded engine: the optimistic tile sort is the transaction,
+    sortedness violations are the aborts, the exact bitonic re-sort is
+    TM_RETRY and band overflow is the conflicts spill; HTM_ADAPT is a real
+    dial (the sniffed displacement picks the sorter);
+  * the scatter build (``--backend xla``, duplicate build keys without a
+    probe, keys at or above PACK_LIMIT): ``insert.htm_optimistic_build``,
+    one optimistic scatter at bucket*3 + key%3 (the transaction),
+    gather-back failure detection (the aborts), claim rounds into the
+    bucket's free slots (TM_RETRY) and the spill of the rest; the
+    per-16384-tuple failure fractions that drove HTM_ADAPT are computed
+    and replayed through its controller.
+
+HTM_SWITCH sends data without locality to the radix join.
 """
 
 from __future__ import annotations
@@ -23,21 +29,20 @@ from typing import Optional
 import torch
 
 from ..config import JoinConfig
+from ..ops import insert, probe
+from ..ops.hashing import locality_hash
 from ..relation import Relation
 from ..utils.metrics import JoinMetrics
 from ..utils.timing import PhaseTimer
 from .banded_backend import (DEFAULT_TILE, BandedJoinOutcome,
                              banded_build_pipelined, banded_join_pipelined,
                              enqueue_banded_build, enqueue_full_join)
-from .common import (BandedPlan, adaptive_guess_plan,
-                     adaptive_window_estimate, dial_window, htm_num_buckets,
-                     keys_unique_both, maybe_pipeline_timing, pallas_metrics,
-                     pallas_plan, sniff_enqueue, sniff_stats_dict,
+from .common import (BandedPlan, SpillState, adaptive_guess_plan,
+                     adaptive_window_estimate, dial_window, finish_metrics,
+                     htm_num_buckets, keys_unique_both,
+                     maybe_pipeline_timing, pallas_metrics, pallas_plan,
+                     resolve_relations, sniff_enqueue, sniff_stats_dict,
                      use_pallas_engine, use_pallas_engine_build)
-
-XLA_BUILD_TODO = ("the XLA scatter build of htm (htm_hashjoin_tpu/joins/"
-                  "htm.py:_build) needs ops/insert.py, not ported yet: "
-                  "ROADMAP queue 1 item 7")
 
 
 def _adaptive_pallas_plan(r: Relation, cfg: JoinConfig, probing: bool):
@@ -210,6 +215,20 @@ def _htm_build_pallas_adaptive(cfg: JoinConfig, r: Relation) -> JoinMetrics:
     return m
 
 
+def _build(keys: torch.Tensor, num_buckets: int, retry: bool, chunk: int):
+    """The scatter build: (table, pending, failed count, per-chunk failure
+    fractions, table key sum, input key sum), all on the keys' device."""
+    res = insert.htm_optimistic_build(keys, num_buckets, retry=retry)
+    return (res.table, res.pending,
+            torch.sum(res.failed_optimistic, dtype=torch.int64),
+            insert.chunk_failure_fractions(res.failed_optimistic, chunk),
+            probe.table_sum(res.table), torch.sum(keys, dtype=torch.int64))
+
+
+def _probe(table: torch.Tensor, skeys: torch.Tensor) -> torch.Tensor:
+    return probe.probe_buckets(table, skeys, 3, locality_hash)
+
+
 def simulate_adaptive_tsize(chunk_fail, t0: int) -> list[int]:
     """Replay of the HTM_ADAPT controller (HTMHashBuild.hpp:204-211):
     failure fraction < 0.004 => tSize *= 2 (cap 4096); > 0.02 => tSize /= 2
@@ -232,7 +251,45 @@ def htm_join(r: Relation, s: Optional[Relation] = None,
         return _htm_join_pallas(r, s, cfg)
     if (s is None or not cfg.enable_probe) and use_pallas_engine_build(cfg):
         return _htm_build_pallas(cfg, r)
-    raise NotImplementedError(XLA_BUILD_TODO)
+    return _htm_scatter_join(r, s, cfg)
+
+
+def _htm_scatter_join(r: Relation, s: Optional[Relation],
+                      cfg: JoinConfig) -> JoinMetrics:
+    """The scatter build and its bucket probe, plus the spill's probe.
+    TM_TRACK's causes on this path: an optimistic-slot loss is a
+    duplicate or bucket alias (_XABORT_CONFLICT), a claim-round residue
+    that spilled is capacity (_XABORT_CAPACITY); nothing here assumes a
+    bounded displacement, so that cause is 0."""
+    rkeys, skeys = resolve_relations(r, s, cfg)
+    timer = PhaseTimer()
+    table, pending, failed, chunk_fail, table_sum, in_sum = timer.timed(
+        "build", _build, rkeys, htm_num_buckets(cfg.r_size), cfg.retry,
+        cfg.chunk_size)
+    spill = SpillState(rkeys, pending, timer,
+                       head=(failed, table_sum, in_sum))
+    failed, table_sum, in_sum = spill.head
+    matches = None
+    if skeys is not None:
+        matches = int(timer.timed("probe", _probe, table, skeys))
+        matches += spill.probe_count(skeys, timer)
+    m = JoinMetrics(algo="htm", rSize=cfg.r_size,
+                    transactionSize=cfg.transaction_size,
+                    probeLength=cfg.probe_length,
+                    conflictCount=spill.count, failedTransactions=failed,
+                    inputSum=in_sum, outputSum=table_sum + spill.key_sum)
+    cf = chunk_fail.tolist() if (cfg.track or cfg.adaptive) else []
+    if cfg.track:
+        m.extra["chunkFailureFractions"] = cf[:64]
+        m.extra["maxChunkFailureFraction"] = max(cf) if cf else 0.0
+        m.extra["failureCauseDisplacement"] = 0
+        m.extra["failureCauseDuplicateAlias"] = failed
+        m.extra["failureCauseBandOverflow"] = spill.count
+    if cfg.adaptive:
+        trace = simulate_adaptive_tsize(cf, cfg.transaction_size)
+        m.extra["adaptiveTransactionSizeFinal"] = (
+            trace[-1] if trace else cfg.transaction_size)
+    return finish_metrics(m, timer, matches, retry=cfg.retry)
 
 
 def _htm_switch_join(r: Relation, s: Optional[Relation],

@@ -5,5 +5,7 @@ K3 ``global_sort``, K4 ``banded_count``, K5 ``banded_count_narrow``, K6
 launch the radix sort of ``radix_sort``), the tile sorters' plain forms
 (``sorters``), the multipass radix partition around K2 and K6
 (``radix_kernels``), K1's band prepass (``tile_minmax``), the sort route's
-MSB partition and tagged probe (``partition``, ``probe``), the wrappers' shared checks (``_args``) and the
-nvcc build (``_build``)."""
+MSB partition and tagged probe (``partition``, ``probe``), the hash
+functions, scatter builds and table probes of the hash joins
+(``hashing``, ``insert``, ``probe``) and sortmerge's count (``sortops``),
+the wrappers' shared checks (``_args``) and the nvcc build (``_build``)."""

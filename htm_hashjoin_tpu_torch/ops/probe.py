@@ -1,11 +1,56 @@
-"""Probe-phase primitives of the sort route (counterpart of
-``htm_hashjoin_tpu/ops/probe.py``): multiset match counts from one sorted
-stream of tagged keys.  These are the torch glue around the kernels, not
-kernels themselves (the JAX package leaves them to XLA)."""
+"""Probe-phase primitives (counterpart of ``htm_hashjoin_tpu/ops/probe.py``):
+batched gathers against the scatter builds' tables, and multiset match
+counts from one sorted stream of tagged keys.  These are the torch glue
+around the kernels, not kernels themselves (the JAX package leaves them to
+XLA).  The reference probes are serial loops per probe tuple: linear scans
+over open-addressing slots (AtomicHashBuild.hpp:69-86) and bucket walks
+(HTMHashBuild.hpp:288-308, mc/src/no_partitioning_join.c:270-310)."""
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
+
+HashFn = Callable[[torch.Tensor, int], torch.Tensor]
+
+
+def probe_open_addressing(table: torch.Tensor, skeys: torch.Tensor,
+                          probe_length: int, hash_fn: HashFn) -> torch.Tensor:
+    """Matches (int64 device scalar) of a scan of ``probe_length`` slots
+    from h (AtomicHashBuild.hpp:69-86); never more than table_size slots,
+    which would revisit one."""
+    table_size = table.numel()
+    mask = table_size - 1
+    h = hash_fn(skeys, mask).to(torch.int64)
+    total = torch.zeros((), dtype=torch.int64, device=skeys.device)
+    for j in range(min(probe_length, table_size)):
+        total += torch.sum(table[(h + j) & mask] == skeys, dtype=torch.int64)
+    return total
+
+
+def probe_buckets(table: torch.Tensor, skeys: torch.Tensor, slots: int,
+                  hash_fn: HashFn) -> torch.Tensor:
+    """Matches (int64 device scalar) against an S-slot bucket table
+    (HTMHashBuild.hpp:288-308 without the overflow chain: the spilled
+    tuples are probed apart, see ``joins/common.SpillState``)."""
+    num_buckets = table.numel() // slots
+    base = hash_fn(skeys, num_buckets - 1).to(torch.int64) * slots
+    total = torch.zeros((), dtype=torch.int64, device=skeys.device)
+    for r in range(slots):
+        total += torch.sum(table[base + r] == skeys, dtype=torch.int64)
+    return total
+
+
+def table_sum(table: torch.Tensor) -> torch.Tensor:
+    """Sum of the keys in a table (empty slots are 0): half of the
+    outputSum conservation oracle (HTMHashBuild.hpp:322-401)."""
+    return torch.sum(table, dtype=torch.int64)
+
+
+def masked_sum(keys: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Sum of keys[mask] (int64): the conflict accounting."""
+    return torch.sum(torch.where(mask, keys, 0), dtype=torch.int64)
 
 
 def segmented_count_tagged(comp_sorted: torch.Tensor) -> torch.Tensor:

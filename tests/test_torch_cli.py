@@ -1,8 +1,9 @@
 """The port's CLI against the JAX package's: the same flags parse to the same
 JoinConfig (the argv lists of ``tests/test_cli.py`` and more), lines run on
 the CPU carry the JAX CLI's key set (JAX with ``--backend pallas``) and the
-reference's invariants, and what is not ported yet raises, naming its
-ROADMAP item."""
+reference's invariants, every ``--algo`` name runs, ``--backend xla``
+gives the JAX CLI's line, and what is not ported yet raises, naming its
+ROADMAP item by title."""
 
 import dataclasses
 import json
@@ -110,19 +111,72 @@ def test_adaptive_zipf_chooses_radix_with_exact_matches(capsys):
     assert line["inputSum"] == line["outputSum"]
 
 
-@pytest.mark.parametrize("algo", ["nocc", "atomic", "sortmerge", "npo",
-                                  "npo_st", "NPO", "NPO_st"])
-def test_unported_algorithms_raise(algo):
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        cli.main(["--algo", algo, "--rSize", "1024"], device=CPU)
+@pytest.mark.parametrize("argv", [
+    ["--algo", "nocc", "--dataDistr", "uniform", "--distinctKeys", "1000"],
+    ["--algo", "atomic", "--dataDistr", "uniform", "--distinctKeys", "1000"],
+    ["--algo", "sortmerge", "--dataDistr", "random"],
+    ["--algo", "npo", "--dataDistr", "shuffle"],
+    ["--algo", "npo_st", "--dataDistr", "zipf"],
+    ["--algo", "NPO", "-r", "4096", "-s", "8192"],
+    ["--algo", "NPO_st", "-r", "4096", "-s", "8192", "-z", "0.9"]],
+    ids=lambda a: " ".join(a)[:40])
+def test_every_algorithm_runs(capsys, argv):
+    """The five algorithms that raised until their modules were ported, and
+    the mc names of npo, through cli.main on the CPU: the exact match count
+    and conservation (nocc: its losses only lower both)."""
+    if "-r" not in argv:
+        argv = argv + ["--rSize", "16384"]
+    line = run_line(capsys, argv, device=CPU)
+    cfg, _ = cli.parse_args(argv)
+    r, s = build_relations(cfg)
+    exact = reference_match_count(r.keys, s.keys)
+    assert line["inputSum"] == r.key_sum()
+    if cfg.algo.value == "nocc":
+        assert line["outputSum"] < line["inputSum"]
+        assert line["totalMatches"] < exact
+    else:
+        assert line["outputSum"] == line["inputSum"]
+        assert line["totalMatches"] == exact
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--meshShape", "8"], "item 10"), (["--profile", "/nowhere"], "item 9"),
-    (["--counters"], "item 9"), (["--throughput"], "item 9"),
-    (["--backend", "xla"], "item 7")])
-def test_unported_flags_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
+@pytest.mark.parametrize("argv", [
+    ["--algo", "htm", "--dataDistr", "local_shuffle"],
+    ["--algo", "atomic", "--dataDistr", "uniform", "--distinctKeys", "999"],
+    ["--algo", "nocc", "--dataDistr", "shuffle", "--noProbe"],
+    ["--algo", "NPO", "-r", "2048", "-s", "4096"]],
+    ids=lambda a: " ".join(a)[:40])
+def test_backend_xla_line_equals_jax(capsys, argv):
+    """--backend xla takes the scatter builds, as JAX's CLI does: the same
+    line on the same relations (each package's CLI makes its own, so the
+    port's join runs on the JAX CLI's keys here)."""
+    from htm_hashjoin_tpu.data.generators import \
+        build_relations as jbuild_relations
+    from htm_hashjoin_tpu.joins import DISPATCH as JDISPATCH
+    from htm_hashjoin_tpu_torch.joins import DISPATCH
+    from htm_hashjoin_tpu_torch.relation import Relation, keys_from_numpy
+    argv = argv + ["--backend", "xla"]
+    if "-r" not in argv:
+        argv = argv + ["--rSize", "4096"]
+    cfg, _ = cli.parse_args(argv)
+    jcfg, _ = jcli.parse_args(argv)
+    jr, js = jbuild_relations(jcfg)
+    want = JDISPATCH[jcfg.algo.value](jr, js, jcfg).to_dict()
+    r = Relation(keys_from_numpy(jr.keys))
+    s = Relation(keys_from_numpy(js.keys), assume_sorted=js.assume_sorted)
+    got = DISPATCH[cfg.algo.value](r, s, cfg).to_dict()
+    assert "backend" not in got
+    assert {k: v for k, v in got.items() if "Time" not in k} == \
+        {k: v for k, v in want.items() if "Time" not in k}
+    assert set(run_line(capsys, argv, device=CPU)) == set(got)
+
+
+@pytest.mark.parametrize("flags,title", [
+    (["--meshShape", "8"], "Distributed"),
+    (["--profile", "/nowhere"], "Profiler, counters"),
+    (["--counters"], "Profiler, counters"),
+    (["--throughput"], "Profiler, counters")])
+def test_unported_flags_raise(flags, title):
+    with pytest.raises(NotImplementedError, match=f"queue 1, {title}"):
         cli.main(["--algo", "htm", "--rSize", "1024"] + flags, device=CPU)
 
 

@@ -2,8 +2,10 @@
 sort, K3 global sort, K4 general count, K5 narrow count, K6 radix scatter,
 K7 key-value global sort) against their plain torch versions on the card,
 exactly, the join
-plans that run them, the multipass radix join and one CLI run per path the
-planner chooses; K7a (the TPU's kv phase A, unstable) by the multiset rule
+plans that run them, the multipass radix join, one CLI run per path the
+planner chooses, and each scatter build's join (nocc, atomic, htm, npo,
+npo_st; sortmerge's plain route) with the card's line equal to the CPU's;
+K7a (the TPU's kv phase A, unstable) by the multiset rule
 within each tile, the Wisconsin kv split and three multijoin confs at a cut
 scale.
 
@@ -27,6 +29,7 @@ from htm_hashjoin_tpu_torch.data.generators import (build_relations,
                                                     local_shuffled_keys,
                                                     shuffled_keys,
                                                     sorted_keys, zipf_keys)
+from htm_hashjoin_tpu_torch.joins import DISPATCH
 from htm_hashjoin_tpu_torch.joins import banded_backend as bb
 from htm_hashjoin_tpu_torch.joins.radix import radix_join
 from htm_hashjoin_tpu_torch.ops import _build
@@ -41,6 +44,7 @@ from htm_hashjoin_tpu_torch.ops import scatter_tiles as sct
 from htm_hashjoin_tpu_torch.ops import sort_kv_tiles as skv
 from htm_hashjoin_tpu_torch.ops import sort_tiles as st
 from htm_hashjoin_tpu_torch.ops import tile_minmax as tmm
+from htm_hashjoin_tpu_torch.relation import Relation
 
 pytestmark = pytest.mark.gpu
 
@@ -515,6 +519,37 @@ def test_skewed_probe_and_builds_on_the_card(dev):
     assert build.output_sum == build.input_sum == n * (n + 1) // 2
     heavy = torch.full((1 << 20,), 3, dtype=torch.int32, device=dev)
     assert int(bb.tagged_count(heavy, heavy, tile=8192)) == 1 << 40
+
+
+@pytest.mark.parametrize("algo,fields", [
+    ("nocc", dict(data_distr=Distribution.UNIFORM, distinct_keys=1 << 14)),
+    ("nocc", dict(data_distr=Distribution.RANDOM)),
+    ("nocc", dict(data_distr=Distribution.SHUFFLE, backend="xla",
+                  enable_probe=False)),
+    ("atomic", dict(data_distr=Distribution.UNIFORM, distinct_keys=1 << 14)),
+    ("atomic", dict(data_distr=Distribution.SHUFFLE, backend="xla")),
+    ("htm", dict(data_distr=Distribution.UNIFORM, distinct_keys=1 << 14,
+                 backend="xla", track=True, adaptive=True)),
+    ("htm", dict(data_distr=Distribution.RANDOM)),
+    ("htm", dict(data_distr=Distribution.ZIPF, enable_probe=False)),
+    ("npo", dict(data_distr=Distribution.UNIFORM, backend="xla")),
+    ("npo_st", dict(data_distr=Distribution.PK, s_distr=Distribution.FK,
+                    s_size=1 << 17)),
+    ("sortmerge", dict(data_distr=Distribution.RANDOM))])
+def test_scatter_builds_on_the_card_equal_the_cpu(dev, algo, fields):
+    """The winner of a slot is the highest row on the card (atomicMax) as
+    on the CPU, so the two lines agree on every field but the times, nocc's
+    losses included."""
+    cfg = JoinConfig(algo=Algo(algo), r_size=1 << 16, **fields)
+    r, s = build_relations(cfg, dev)
+    probing = cfg.enable_probe
+    cpu_r = Relation(r.keys.cpu())
+    cpu_s = Relation(s.keys.cpu(), assume_sorted=s.assume_sorted)
+    got = DISPATCH[algo](r, s if probing else None, cfg).to_dict()
+    want = DISPATCH[algo](cpu_r, cpu_s if probing else None, cfg).to_dict()
+    assert "backend" not in got
+    assert {k: v for k, v in got.items() if "Time" not in k} == \
+        {k: v for k, v in want.items() if "Time" not in k}
 
 
 def scatter_case(keys, tile, fanout, shift, align=False):

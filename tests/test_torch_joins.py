@@ -58,7 +58,7 @@ def jax_cfg(cfg: JoinConfig, **changes):
     fields["data_distr"] = jconfig.Distribution(cfg.data_distr.value)
     if cfg.s_distr is not None:
         fields["s_distr"] = jconfig.Distribution(cfg.s_distr.value)
-    fields.update(backend="pallas", **changes)
+    fields.update({"backend": "pallas", **changes})
     return jconfig.JoinConfig(**fields)
 
 
@@ -213,17 +213,27 @@ def test_track_build_divides_by_the_port_tile():
     assert line["inputSum"] == line["outputSum"]
 
 
-@pytest.mark.parametrize("cfg", [
+@pytest.mark.parametrize("fields", [
     dict(backend="xla"),
     dict(data_distr=Distribution.UNIFORM, enable_probe=False),
-    dict(data_distr=Distribution.RANDOM)])
-def test_xla_build_formulation_raises(cfg):
-    """The JAX package's XLA scatter build (ops/insert.py) is not ported:
-    the joins that would take it raise, naming the queue item."""
-    cfg = JoinConfig(algo=Algo.HTM, r_size=1024, **cfg)
-    r, s = build_relations(cfg)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        htm.htm_join(r, s if cfg.enable_probe else None, cfg)
+    dict(data_distr=Distribution.RANDOM)], ids=str)
+def test_htm_scatter_build_matches_jax(fields):
+    """The three ways into htm's scatter build (``ops/insert.py``): the
+    ``xla`` backend, build-only duplicate keys, keys past PACK_LIMIT.  JAX
+    runs its XLA formulation (``backend="xla"``) on the same keys; the
+    lines agree on every field that is not a time."""
+    cfg = JoinConfig(algo=Algo.HTM, r_size=N, seed=4, **fields)
+    r, s, jr, js, rk, sk = relations(cfg)
+    probing = cfg.enable_probe
+    got = htm.htm_join(r, s if probing else None, cfg).to_dict()
+    want = jhtm.htm_join(jr, js if probing else None,
+                         jax_cfg(cfg, backend="xla")).to_dict()
+    assert "backend" not in got
+    assert {k: v for k, v in got.items() if "Time" not in k} == \
+        {k: v for k, v in want.items() if "Time" not in k}
+    assert got["inputSum"] == got["outputSum"] == int(rk.astype(np.int64).sum())
+    if probing:
+        assert got["totalMatches"] == reference_match_count(rk, sk)
 
 
 def test_simulate_adaptive_tsize_matches_jax():

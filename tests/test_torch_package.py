@@ -32,9 +32,11 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
         "import sys\n"
         "import htm_hashjoin_tpu_torch, htm_hashjoin_tpu_torch.bench\n"
         "import htm_hashjoin_tpu_torch.cli, htm_hashjoin_tpu_torch.config\n"
-        "from htm_hashjoin_tpu_torch.joins import adaptive, common, htm, radix\n"
-        "from htm_hashjoin_tpu_torch.ops import (partition, probe,"
-        " radix_kernels, scatter_tiles, global_sort_kv, sort_kv_tiles)\n"
+        "from htm_hashjoin_tpu_torch.joins import (adaptive, atomic, common,"
+        " htm, nocc, npo, radix, sortmerge)\n"
+        "from htm_hashjoin_tpu_torch.ops import (hashing, insert, partition,"
+        " probe, radix_kernels, scatter_tiles, sortops, global_sort_kv,"
+        " sort_kv_tiles)\n"
         "import htm_hashjoin_tpu_torch.wisconsin\n"
         "import htm_hashjoin_tpu_torch.wisconsin.__main__\n"
         "from htm_hashjoin_tpu_torch.utils import metrics, timing, validate\n"
