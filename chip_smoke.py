@@ -94,7 +94,25 @@ Phases, one line each:
                 no_partition; then K7 (exactly, and against the stable sort +
                 gather) and K7a against their plain versions at the probe
                 split's shape (2^28 rotation-packed keys plus payload),
-                timed.
+                timed, and K7a's library call (a per-block torch.sort and a
+                gather of the values);
+ 12. measure    - the measurement layer: the testbed's 2^27 copy rate (at
+                most 3.35 TB/s + 5 %); cli.main with --counters
+                --throughput on the headline join (--algo htm) and on the
+                atomic scatter build (--backend xla --noProbe, shuffled),
+                each line's default events, its bandwidth at most the copy
+                rate + 5 % and tuplesPerSecond = n / time; --profile on the
+                headline join, its Chrome trace naming
+                fused_sort_count_kernel; the harness's probe grid (84
+                points, --pipelineDepth 5: K1, K2 + K4, K3 + K5) and
+                skewprobe grid (15) at 2^27 into a temporary --outDir,
+                every line exact against two torch.searchsorted calls on
+                the same relations, the clean probe lines sustained, the
+                logs written; the chunk sweep at 2^27 (chunks 2^0..2^12)
+                and at 2^20 equal to the CPU's rows but for the time; a
+                2^24 relation through .npz and back, and the read-through
+                cache; the native generator's 2^27 keys (when its library
+                loads and runs on this host) through the headline join.
 Then a JSON line of kernels (launches on the paths, largest error, the
 kernel's, its plain version's and a library call's time, and its bound: the
 bytes of its inputs and outputs over 3.35 TB/s; K7a, which no path runs,
@@ -110,22 +128,29 @@ is made.
 from __future__ import annotations
 
 import contextlib
+import glob
+import gzip
 import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from htm_hashjoin_tpu_torch import bench, cli
+from htm_hashjoin_tpu_torch.benchmarks import chunk_sweep, memory_bandwidth
 from htm_hashjoin_tpu_torch.config import Algo, Distribution, JoinConfig
 from htm_hashjoin_tpu_torch.constants import MAXI32
+from htm_hashjoin_tpu_torch.data import native, persist
 from htm_hashjoin_tpu_torch.data.generators import (build_relations,
                                                     local_shuffled_keys,
                                                     pk_keys, shuffled_keys,
                                                     sorted_keys, zipf_keys)
+from htm_hashjoin_tpu_torch.harness import GRIDS, run_grid, runner
 from htm_hashjoin_tpu_torch.joins import DISPATCH
 from htm_hashjoin_tpu_torch.joins import banded_backend as bb
 from htm_hashjoin_tpu_torch.joins.radix import radix_join
@@ -141,6 +166,7 @@ from htm_hashjoin_tpu_torch.ops import sort_kv_tiles as skv
 from htm_hashjoin_tpu_torch.ops import sort_tiles as st
 from htm_hashjoin_tpu_torch.ops import tile_minmax as tmm
 from htm_hashjoin_tpu_torch.relation import Relation
+from htm_hashjoin_tpu_torch.utils.profiler import tensor_bytes
 from htm_hashjoin_tpu_torch.wisconsin import parse_conf, run_multijoin
 from htm_hashjoin_tpu_torch.wisconsin import partitioner as wpart
 from htm_hashjoin_tpu_torch.wisconsin.driver import load_side
@@ -168,6 +194,12 @@ KERNELS = {
 # and timed, but exempt from the check that a path launched them
 OFF_PATH = {"sort_kv_tiles": "the radix sort behind K7 needs no phase A"}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory, NVIDIA's data sheet
+# the harness grids of the measurement phase: (pipeline depth, the kernels
+# each grid's plans must launch)
+HARNESS = {"probe": (5, {"fused_sort_count": 1, "sort_tiles": 1,
+                         "banded_count": 1, "global_sort_tiles": 1,
+                         "banded_count_narrow": 1}),
+           "skewprobe": (1, {"global_sort_tiles": 1, "banded_count": 1})}
 WISCONSIN_CONFS = "htm_hashjoin_tpu/wisconsin/conf/"
 # conf -> whether its splits sort through K7: every conf's hash node is a
 # ModuloHash over two int32 columns of 2^24 and 2^28 rows, so a side whose
@@ -333,22 +365,11 @@ def _events_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def _nbytes(*items) -> int:
-    """Bytes of the tensors among ``items`` (tuples and lists opened)."""
-    total = 0
-    for x in items:
-        if isinstance(x, (tuple, list)):
-            total += _nbytes(*x)
-        elif isinstance(x, torch.Tensor):
-            total += x.numel() * x.element_size()
-    return total
-
-
 def _bound_ms(inputs, outputs) -> float:
     """The least time the card could take: each input byte read once and
     each output byte written once at the device-memory rate (no kernel
     here does arithmetic worth a bound of its own)."""
-    return _nbytes(inputs, outputs) / HBM_BYTES_PER_S * 1e3
+    return tensor_bytes(inputs, outputs) / HBM_BYTES_PER_S * 1e3
 
 
 def _reset_counts() -> None:
@@ -1023,13 +1044,18 @@ def _radix(dev, card, errs, times) -> dict:
     return total
 
 
-def _cli_line(argv, dev) -> dict:
-    """Run the CLI in-process on ``dev``; return its JSON line."""
+def _cli_lines(argv, dev) -> list:
+    """Run the CLI in-process on ``dev``; return its JSON lines."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         _require(cli.main(argv, device=dev) == 0, f"cli {argv} failed")
     print(f"cli: {' '.join(argv)}")
-    return json.loads(buf.getvalue().strip().splitlines()[-1])
+    return [json.loads(line) for line in buf.getvalue().strip().splitlines()]
+
+
+def _cli_line(argv, dev) -> dict:
+    """Run the CLI in-process on ``dev``; return its (last) JSON line."""
+    return _cli_lines(argv, dev)[-1]
 
 
 def _cli_paths(dev, card) -> dict:
@@ -1393,15 +1419,238 @@ def _wisconsin(dev, card, errs, times) -> dict:
                                               alternate=True), 3)
     plain_ms = _events_ms(lambda: skv.sort_kv_tiles_ref(t, pay, tile=block,
                                                         alternate=True), 3)
+
+    def library():   # one torch.sort of the blocks, then gather the values
+        by_key = torch.sort(t.view(-1, block), dim=1)
+        return by_key.values, torch.gather(pay.view(-1, block), 1,
+                                           by_key.indices)
+
+    library_ms = _events_ms(library, 3)
     times["sort_kv_tiles"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                                  library_ms=None,
+                                  library_ms=library_ms,
                                   kernel_phase_launches=skv.LAUNCHES - before)
     print(f"kernel times: sort_kv_tiles at {what}, {block}-pair blocks: "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library none, bound "
-          f"{bound:.4f} ms, max_abs_err={err}, "
-          f"{skv.LAUNCHES - before} launches [{card}]")
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (block torch.sort"
+          f" + gather) {library_ms:.4f} ms, bound {bound:.4f} ms, "
+          f"max_abs_err={err}, {skv.LAUNCHES - before} launches [{card}]")
     del t, pay
     torch.cuda.empty_cache()
+    return total
+
+
+def _plain_matches(r: Relation, s: Relation) -> int:
+    """The join's match count by two torch.searchsorted calls of S's keys
+    into R's sorted keys."""
+    rs = torch.sort(r.keys).values
+    return int((torch.searchsorted(rs, s.keys, right=True)
+                - torch.searchsorted(rs, s.keys)).sum())
+
+
+def _counters_runs(dev, card, rate, total) -> None:
+    """cli.main with --counters --throughput on the headline join and the
+    atomic scatter build: the default events, bandwidth under the copy
+    rate, tuplesPerSecond = n / time; then --profile on the headline join,
+    whose trace must name K1's kernel."""
+    n = 1 << LOG2_N
+    headline = ["--algo", "htm", "--dataDistr", "local_shuffle", "--rSize",
+                str(n)]
+    scatter = ["--algo", "atomic", "--backend", "xla", "--noProbe",
+               "--dataDistr", "shuffle", "--rSize", str(n)]
+    for argv, expect in ((headline, {"fused_sort_count": 1}), (scatter, {})):
+        argv = argv + ["--counters", "--throughput"]
+        res = {}
+        counts = _run_path(f"cli {' '.join(argv)}",
+                           lambda: len(res.setdefault(
+                               "out", _cli_lines(argv, dev))), expect, card)
+        for k, v in counts.items():
+            total[k] += v
+        line, rep = res["out"]
+        events = line.get("counters", {})
+        secs = (line["hashBuildTimeInMicroseconds"]
+                + (line.get("probeTimeInMicroseconds") or 0.0)) * 1e-6
+        want_n = n + (n if line.get("probeTimeInMicroseconds") else 0)
+        print(f"measure: {' '.join(argv)}: counters {json.dumps(events)}; "
+              f"throughput {json.dumps(rep)}; copy rate {rate:.1f} GB/s "
+              f"[{card}]")
+        _require(events and all(
+            set(e) == {"flops", "bytes", "intensity", "bandwidth"}
+            and 0 < e["bandwidth"] <= rate * 1.05 for e in events.values()),
+            f"counters of {argv}: {events} (copy rate {rate} GB/s)")
+        _require(line["inputSum"] == line["outputSum"] and
+                 rep["numTuples"] == want_n and
+                 abs(rep["tuplesPerSecond"] - want_n / secs)
+                 <= 1e-9 * rep["tuplesPerSecond"],
+                 f"throughput line of {argv}: {rep} for {line}")
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = headline + ["--profile", tmp]
+        counts = _run_path(f"cli {' '.join(argv)}",
+                           lambda: _cli_line(argv, dev)["totalMatches"],
+                           {"fused_sort_count": 1}, card)
+        for k, v in counts.items():
+            total[k] += v
+        files = glob.glob(os.path.join(tmp, "*.pt.trace.json*"))
+        _require(len(files) == 1, f"--profile wrote {files}")
+        opener = gzip.open if files[0].endswith(".gz") else open
+        with opener(files[0], "rt") as f:
+            text = f.read()
+        print(f"measure: --profile trace {os.path.basename(files[0])}: "
+              f"{len(text)} bytes, names fused_sort_count_kernel: "
+              f"{'fused_sort_count_kernel' in text}")
+        _require("fused_sort_count_kernel" in text,
+                 "the headline join's trace does not name K1's kernel")
+
+
+def _harness_grids(dev, card, total) -> None:
+    """The probe and skewprobe grids at 2^27 through run_grid into a
+    temporary --outDir; every line exact against a plain count of the same
+    relations, made anew from the grid's seeds."""
+    with tempfile.TemporaryDirectory() as out_dir:
+        for name, (depth, expect) in HARNESS.items():
+            res = {}
+            counts = _run_path(
+                f"harness {name} 2^{LOG2_N} --pipelineDepth {depth}",
+                lambda: len(res.setdefault("lines", run_grid(
+                    name, scale=LOG2_N, reps=1, out_dir=out_dir, echo=False,
+                    pipeline_depth=depth, device=dev))), expect, card)
+            for k, v in counts.items():
+                total[k] += v
+            runner.clear_cache()
+            torch.cuda.empty_cache()
+            lines = [json.loads(x) for x in res["lines"]]
+            bad = []
+            for cfg, d in zip(GRIDS[name](LOG2_N), lines):
+                r, s = build_relations(cfg, dev)
+                want = _plain_matches(r, s)
+                del r, s
+                ok = (d["inputSum"] == d["outputSum"]
+                      and d["totalMatches"] == want)
+                if depth > 1 and d.get("resorted") is False:
+                    ok = ok and d.get("pipelineDepth") == depth \
+                        and "singleRunTimeInMicroseconds" in d
+                if not ok:
+                    bad.append((cfg, d, want))
+            torch.cuda.empty_cache()
+            builds = [d["hashBuildTimeInMicroseconds"] for d in lines]
+            repaired = sum(d.get("resorted") is True for d in lines)
+            log = os.path.join(out_dir, f"{name}_log1")
+            print(f"measure: harness {name} 2^{LOG2_N}: {len(lines)} points, "
+                  f"{len(lines) - len(bad)} exact, {repaired} repaired; "
+                  f"hashBuildTimeInMicroseconds {min(builds):.1f}.."
+                  f"{max(builds):.1f}; {name}_log1 written: "
+                  f"{os.path.exists(log)} [{card}]")
+            _require(not bad and len(lines) == len(list(GRIDS[name](LOG2_N)))
+                     and os.path.exists(log), f"harness {name}: {bad[:3]}")
+
+
+def _chunk_sweeps(dev, card) -> None:
+    rows = chunk_sweep(LOG2_N, device=dev)
+    _require([r["chunkSize"] for r in rows] == [1 << i for i in range(13)]
+             and all(r["maxFailureFraction"] == 0.0 for r in rows),
+             f"chunk sweep at 2^{LOG2_N}: {rows}")
+    card_rows = chunk_sweep(20, device=dev)
+    cpu_rows = chunk_sweep(20, device="cpu")
+    same = [_untimed(r) for r in card_rows] == [_untimed(r) for r in cpu_rows]
+    print(f"measure: chunk sweep 2^{LOG2_N}: 13 rows, build "
+          f"{rows[0]['buildTimeUsecs']:.1f} us; 2^20 rows equal the CPU's: "
+          f"{same} (card build {card_rows[0]['buildTimeUsecs']:.1f} us) "
+          f"[{card}]")
+    _require(same, f"chunk sweep 2^20: card {card_rows} != CPU {cpu_rows}")
+
+
+def _persistence(dev, card) -> None:
+    m = 1 << 24
+    rel = Relation(shuffled_keys(m, 5, dev), sorted_keys(m, dev))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "r.npz")
+        t0 = time.perf_counter()
+        persist.save_relation(rel, path)
+        back = persist.load_relation(path, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        same = back.keys.device == rel.keys.device and \
+            torch.equal(back.keys, rel.keys) and \
+            torch.equal(back.payloads, rel.payloads)
+        cfg = JoinConfig(r_size=m, data_distr=Distribution.SHUFFLE, seed=5)
+        calls = []
+
+        def generate():
+            calls.append(1)
+            return Relation(shuffled_keys(m, 5, dev))
+
+        a = persist.cached_relation(cfg, "r", tmp, generate, device=dev)
+        b = persist.cached_relation(cfg, "r", tmp, generate, device=dev)
+        cached = len(calls) == 1 and b.keys.device == rel.keys.device \
+            and torch.equal(a.keys, b.keys)
+    print(f"measure: persistence 2^24 keys + payloads: .npz round trip "
+          f"equal: {same} ({secs:.3f} s); cached_relation generated "
+          f"{len(calls)} time(s) over two calls [{card}]")
+    _require(same and cached, "persistence round trip or cache failed")
+
+
+def _native(dev, card, total) -> None:
+    """The native generator's keys through the headline join, where its
+    library loads and runs on this host (a host library built for its own
+    CPU: a child process tries it first)."""
+    n = 1 << LOG2_N
+    if not native.available():
+        print("measure: native: libhtmdatagen.so does not load here; the "
+              "native generator (a host library) is skipped")
+        return
+    probe = subprocess.run(
+        [sys.executable, "-c",
+         "from htm_hashjoin_tpu_torch.data import native; "
+         "assert native.checksum(native.local_shuffled_keys(4096, 16))"
+         " == 4096 * 4097 // 2"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=300)
+    if probe.returncode:
+        print(f"measure: native: libhtmdatagen.so loads but fails on this "
+              f"host (exit {probe.returncode}); skipped")
+        return
+    t0 = time.perf_counter()
+    keys = native.local_shuffled_keys(n, WINDOW)
+    gen_s = time.perf_counter() - t0
+    rkeys = torch.from_numpy(keys).to(dev)
+    skeys = sorted_keys(n, dev)
+    del keys
+    res = {}
+    counts = _run_path(
+        f"native local_shuffled_keys(2^{LOG2_N}, {WINDOW}) joined",
+        lambda: res.setdefault("out", bb.banded_join_pipelined(
+            rkeys, skeys, tile=TILE, locality_window=WINDOW,
+            unique_both=True)), {"fused_sort_count": 1}, card)
+    for k, v in counts.items():
+        total[k] += v
+    out = res["out"]
+    print(f"measure: native: generated in {gen_s:.3f} s on the host; "
+          f"matches {out.matches}, sums {out.input_sum} / {out.output_sum}"
+          f", violations {out.violations}, resorted {out.resorted}")
+    _require(out.matches == n and
+             out.input_sum == out.output_sum == n * (n + 1) // 2,
+             "the native keys' join is not exact")
+    del rkeys, skeys
+    torch.cuda.empty_cache()
+
+
+def _measurement(dev, card) -> dict:
+    """Phase 12: the testbed, the CLI's counters, throughput and trace, the
+    harness grids, the chunk sweep, persistence and the native generator."""
+    t0 = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+    bw = memory_bandwidth(LOG2_N, device=dev)
+    print(f"measure: testbed 2^{LOG2_N} int32 copy: gbps {bw['gbps']:.1f} "
+          f"(chain of {bw['chain']}, {bw['bestTimeUsecs']:.2f} us a copy), "
+          f"gbpsSingleFenced {bw['gbpsSingleFenced']:.1f} "
+          f"({bw['singleFencedTimeUsecs']:.2f} us) [{card}]")
+    _require(0 < bw["gbps"] <= HBM_BYTES_PER_S / 1e9 * 1.05,
+             f"testbed copy rate {bw['gbps']} GB/s")
+    _counters_runs(dev, card, bw["gbps"], total)
+    _harness_grids(dev, card, total)
+    _chunk_sweeps(dev, card)
+    _persistence(dev, card)
+    _native(dev, card, total)
+    torch.cuda.empty_cache()
+    print(f"measure: phase 12 took {time.perf_counter() - t0:.1f} s [{card}]")
     return total
 
 
@@ -1569,10 +1818,11 @@ def main() -> int:
     # 6-7. every other path at 2^27, then K2-K5 at their paths' shapes
     counts = _paths(dev, card, errs, times)
     counts["fused_sort_count"] += main_counts["fused_sort_count"]
-    # 8-11. K6 and the multipass radix join, the CLI's paths, the hash
-    # joins, then K7 and the Wisconsin multijoin
+    # 8-12. K6 and the multipass radix join, the CLI's paths, the hash
+    # joins, K7 and the Wisconsin multijoin, then the measurement layer
     for more in (_radix(dev, card, errs, times), _cli_paths(dev, card),
-                 _hash_joins(dev, card), _wisconsin(dev, card, errs, times)):
+                 _hash_joins(dev, card), _wisconsin(dev, card, errs, times),
+                 _measurement(dev, card)):
         for k, v in more.items():
             counts[k] += v
     for name in KERNELS:

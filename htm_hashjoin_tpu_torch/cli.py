@@ -8,11 +8,13 @@ device; ``main(argv, device=torch.device("cpu"))`` runs the kernels' plain
 versions instead (the tests do).
 
 Every ``--algo`` name runs, the mc names (``NPO``, ``NPO_st``, ``PRO``
-...) included, and so does ``--backend xla`` (the scatter builds).  Not
-ported yet, and refused with ``NotImplementedError``: ``--meshShape``
-(ROADMAP queue 1, "Distributed"), ``--profile``, ``--counters`` and
-``--throughput`` (queue 1, "Profiler, counters, microbenchmarks,
-harness").
+...) included, and so does ``--backend xla`` (the scatter builds).
+``--profile DIR`` writes a torch.profiler trace of the join (not of the
+generation) into DIR, ``--counters [CFG]`` puts per-phase counters in the
+line (``utils/profiler.py`` says what they count), and ``--throughput``
+prints the ns/tuple report after the line.  Not ported yet, and refused
+with ``NotImplementedError``: ``--meshShape`` (ROADMAP queue 1,
+"Distributed").
 
 Usage:
     python -m htm_hashjoin_tpu_torch.cli --algo htm --rSize $((2**20)) --dataDistr local_shuffle
@@ -21,13 +23,16 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import sys
-
-import torch
 
 from .config import Algo, Distribution, JoinConfig
 from .data.generators import build_relations
 from .joins import DISPATCH
+from .utils.device import entry_device
+from .utils.profiler import (PerfCounters, disable_counters, enable_counters,
+                             throughput_report, trace)
 
 
 # mc driver algorithm names (mc/src/main.c:292-301; RJ/PRH/PRHO alias PRO
@@ -102,8 +107,8 @@ def parse_args(argv=None):
                     help="accepted for parity; placement on TPU follows the "
                          "device-mapping file / mesh (SURVEY.md §2.4 P12)")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="capture a jax.profiler trace of the run (the PCM "
-                        "dump analog, SURVEY.md §5)")
+                   help="capture a torch.profiler trace of the join (the "
+                        "PCM dump analog, SURVEY.md §5)")
     p.add_argument("--counters", nargs="?", const="default", default=None,
                    metavar="CFG",
                    help="per-phase PCM-analog counter dumps in the JSON "
@@ -170,32 +175,30 @@ def parse_args(argv=None):
     return cfg, (a.profile, a.throughput, a.counters)
 
 
-def _device(device) -> torch.device:
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("htm_hashjoin_tpu_torch.cli runs on a CUDA device "
-                           "and none is available (pass device= to main() "
-                           "to run the plain versions on the CPU)")
-    return torch.device("cuda")
-
-
 def main(argv=None, device=None) -> int:
     cfg, (profile_dir, want_throughput, counters) = parse_args(argv)
     if cfg.mesh_shape:
         raise NotImplementedError("--meshShape: the distributed join is not "
                                   "ported yet (ROADMAP queue 1, "
                                   "Distributed)")
-    for flag, used in (("--profile", profile_dir), ("--counters", counters),
-                       ("--throughput", want_throughput)):
-        if used:
-            raise NotImplementedError(
-                f"{flag}: the profiler is not ported yet (ROADMAP queue 1, "
-                f"Profiler, counters, microbenchmarks, harness)")
-    r, s = build_relations(cfg, _device(device))
-    r.fence(), s.fence()   # generation is not part of the timed join phases
-    metrics = DISPATCH[cfg.algo.value](r, s, cfg)
+    dev = entry_device(device, "htm_hashjoin_tpu_torch.cli")
+    if counters:
+        enable_counters(None if counters == "default"
+                        else PerfCounters.from_config(counters))
+    try:
+        r, s = build_relations(cfg, dev)
+        r.fence(), s.fence()   # generation is not part of the timed phases
+        with trace(profile_dir) if profile_dir else contextlib.nullcontext():
+            metrics = DISPATCH[cfg.algo.value](r, s, cfg)
+    finally:
+        if counters:
+            disable_counters()
     print(metrics.to_json_line())
+    if want_throughput:
+        total = metrics.hashBuildTimeInMicroseconds + (
+            metrics.probeTimeInMicroseconds or 0.0)
+        n = cfg.r_size + (cfg.s_size if metrics.probeTimeInMicroseconds else 0)
+        print(json.dumps(throughput_report(n, total)))
     return 0
 
 

@@ -12,9 +12,7 @@ means the banded engine on both devices (the kernels' plain versions on
 CPU tensors, the kernels on CUDA tensors), where JAX takes its XLA
 formulation on the CPU.  The scatter builds (``ops/insert.py``) therefore
 run where JAX's run on its TPU: with ``backend="xla"``, on duplicate build
-keys, and on keys at or above PACK_LIMIT.  Not ported yet:
-``plan_traffic_bytes`` and ``_gsort_pass_count``, the ``--counters`` model
-(ROADMAP queue 1, "Profiler, counters, microbenchmarks, harness").
+keys, and on keys at or above PACK_LIMIT.
 """
 
 from __future__ import annotations
@@ -27,8 +25,9 @@ import torch
 from ..config import Distribution, JoinConfig
 from ..constants import LANES, MAXI32, PACK_LIMIT
 from ..relation import Relation, next_pow2
-from ..ops import insert, probe, sortops
+from ..ops import insert, probe, radix_sort, sortops
 from ..utils.metrics import JoinMetrics
+from ..utils.profiler import active_counters, traffic_counters
 from ..utils.timing import PhaseTimer
 from .banded_backend import (DEFAULT_TILE, MAX_CHUNKS_DEFAULT,
                              banded_build_pipelined, banded_join_pipelined,
@@ -119,7 +118,11 @@ def finish_metrics(m: JoinMetrics, timer: PhaseTimer,
     and the probe phase (with the spill's probe), the match count, and the
     failure fractions (fractions despite the names, the reference's own
     convention, HTMHashBuild.hpp:410-415); under TM_RETRY
-    totalFailedPercentage counts only the residual conflicts."""
+    totalFailedPercentage counts only the residual conflicts.  The timed
+    phases' counters (``--counters``) go into the line as ``counters``,
+    the reference's per-phase PCM dumps (no_partitioning_join.c:458-527)."""
+    if timer.counters:
+        m.extra["counters"] = timer.counters
     micros = timer.micros
     m.hashBuildTimeInMicroseconds = (micros.get("build", 0.0)
                                      + micros.get("spill", 0.0))
@@ -310,13 +313,66 @@ def dial_window(mx: int, chunk: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Metrics
+# Metrics and the --counters traffic model
 # ---------------------------------------------------------------------------
 
+def radix_sort_bytes(n: int) -> float:
+    """Device-memory bytes the radix sort behind K3 moves over n int32 keys
+    (``csrc/radix_sort.cu``): one read for the digit histograms, then
+    ``radix_sort.PASSES`` scatter passes that each read and write every
+    key."""
+    return 4.0 * n * (1 + 2 * radix_sort.PASSES)
+
+
+def plan_traffic_bytes(cfg: JoinConfig, plan: BandedPlan, probing: bool,
+                       sort_s: bool) -> float:
+    """Modelled device-memory bytes of the banded engine for this plan:
+
+      * presorted build: one R read (stats and conservation);
+      * tile-sort build: one R stream (read + write);
+      * presort build:   K3's radix sort of R (``radix_sort_bytes``);
+      * probing count:   sorted R re-read + one S-band pass;
+      * sort_s:          K3's radix sort of S.
+
+    The JAX package's model (``common.py:319-349``) counts its bitonic
+    global sort's passes where this one counts K3's.  K1 sorts and counts
+    in one read of R, so on the narrow plans the model is an upper bound
+    by one R round trip."""
+    rb = 4.0 * cfg.r_size
+    sb = 4.0 * (cfg.s_size or 0)
+    if plan.presorted:
+        byts = rb
+    elif plan.presort:
+        byts = radix_sort_bytes(cfg.r_size)
+    else:
+        byts = 2.0 * rb
+    if probing:
+        byts += rb + sb
+        if sort_s:
+            byts += radix_sort_bytes(cfg.s_size or 0)
+    return byts
+
+
+def _record_traffic(m: JoinMetrics, cfg: JoinConfig, plan: BandedPlan,
+                    probing: bool, sort_s: bool, elapsed_us: float) -> None:
+    """With a counter session on, the plan's modelled traffic over the
+    join's time goes into the line as ``counters``."""
+    if active_counters() is not None:
+        m.extra["counters"] = {("build+probe" if probing else "build"):
+                               traffic_counters(plan_traffic_bytes(
+                                   cfg, plan, probing, sort_s), elapsed_us)}
+
+
 def pallas_metrics(cfg: JoinConfig, algo: str, outcome, elapsed_us: float,
-                   matches: Optional[int]) -> JoinMetrics:
+                   matches: Optional[int],
+                   plan: Optional[BandedPlan] = None,
+                   sort_s: bool = False) -> JoinMetrics:
     """Fold a BandedJoinOutcome into the reference metrics schema (the
-    ``backend`` name stays the JAX package's, so that lines compare)."""
+    ``backend`` name stays the JAX package's, so that lines compare).
+
+    ``plan`` and ``sort_s`` feed the ``--counters`` traffic model: a caller
+    that ran a presort or a device sort of S passes them, or the line's
+    bytes undercount."""
     m = JoinMetrics(algo=algo, rSize=cfg.r_size,
                     transactionSize=cfg.transaction_size,
                     probeLength=cfg.probe_length,
@@ -329,6 +385,8 @@ def pallas_metrics(cfg: JoinConfig, algo: str, outcome, elapsed_us: float,
         m.totalMatches = matches
     m.extra["backend"] = "pallas_banded"
     m.extra["resorted"] = outcome.resorted
+    _record_traffic(m, cfg, plan or BandedPlan(None, False, False, None),
+                    matches is not None, sort_s, elapsed_us)
     if cfg.r_size:
         # fractions, with the TM_RETRY rule (HTMHashBuild.hpp:410-415)
         m.failedTransactionPercentage = m.failedTransactions / cfg.r_size
@@ -346,9 +404,7 @@ def pallas_unique_join(algo: str, r: Relation, s: Optional[Relation],
     take distinct slots under key & (2n-1)), so conflicts and
     failedTransactions are 0 in both formulations and the sorted-tile
     engine gives the same line; an unsorted or duplicate-heavy S takes the
-    device sort and the general count.  The JAX function's ``--counters``
-    branch waits for the profiler port (ROADMAP queue 1, "Profiler,
-    counters, microbenchmarks, harness")."""
+    device sort and the general count."""
     probing = s is not None and cfg.enable_probe
     plan = pallas_plan(cfg, probing=probing)
     t0 = time.perf_counter()
@@ -374,6 +430,8 @@ def pallas_unique_join(algo: str, r: Relation, s: Optional[Relation],
         m.totalMatches = out.matches
     m.extra["backend"] = "pallas_banded"
     m.extra["resorted"] = out.resorted
+    _record_traffic(m, cfg, plan, probing,
+                    probing and not s.assume_sorted, elapsed_us)
     maybe_pipeline_timing(m, cfg, plan, r, s if probing else None, out)
     return m
 

@@ -125,7 +125,8 @@ def _htm_join_pallas_adaptive(r: Relation, s: Relation,
                                     narrow=plan.narrow, sort_s=sort_s,
                                     unique_both=unique_both)
         elapsed_us = (time.perf_counter() - t0) * 1e6
-        m = pallas_metrics(cfg, "htm", out, elapsed_us, out.matches)
+        m = pallas_metrics(cfg, "htm", out, elapsed_us, out.matches,
+                           plan=plan, sort_s=sort_s)
         _adaptive_metrics(m, plan, est, True)
         maybe_pipeline_timing(m, cfg, plan, r, s, out)
         return m
@@ -161,7 +162,8 @@ def _htm_join_pallas_adaptive(r: Relation, s: Relation,
         out = BandedJoinOutcome(matches_i, 0, 0, out_sum, False, in_sum)
         pipe_ref = out
     elapsed_us = (time.perf_counter() - t0) * 1e6
-    m = pallas_metrics(cfg, "htm", out, elapsed_us, out.matches)
+    m = pallas_metrics(cfg, "htm", out, elapsed_us, out.matches, plan=plan,
+                       sort_s=sort_s)
     _dial_remember(ck, r.keys, plan, est)
     _adaptive_metrics(m, plan, est, False)
     maybe_pipeline_timing(m, cfg, plan, r, s, pipe_ref)
@@ -180,7 +182,7 @@ def _htm_build_pallas_adaptive(cfg: JoinConfig, r: Relation) -> JoinMetrics:
                                      presort=plan.presort,
                                      presorted=plan.presorted)
         elapsed_us = (time.perf_counter() - t0) * 1e6
-        m = pallas_metrics(cfg, "htm", out, elapsed_us, None)
+        m = pallas_metrics(cfg, "htm", out, elapsed_us, None, plan=plan)
         _adaptive_metrics(m, plan, est, True)
         maybe_pipeline_timing(m, cfg, plan, r, None, out)
         return m
@@ -208,7 +210,7 @@ def _htm_build_pallas_adaptive(cfg: JoinConfig, r: Relation) -> JoinMetrics:
         out = BandedJoinOutcome(0, 0, 0, out_sum, False, in_sum)
         pipe_ref = out
     elapsed_us = (time.perf_counter() - t0) * 1e6
-    m = pallas_metrics(cfg, "htm", out, elapsed_us, None)
+    m = pallas_metrics(cfg, "htm", out, elapsed_us, None, plan=plan)
     _dial_remember(ck, r.keys, plan, est)
     _adaptive_metrics(m, plan, est, False)
     maybe_pipeline_timing(m, cfg, plan, r, None, pipe_ref)
@@ -337,7 +339,7 @@ def _htm_build_pallas(cfg: JoinConfig, r: Relation) -> JoinMetrics:
     elapsed_us = (time.perf_counter() - t0) * 1e6
     if cfg.track:
         out, tile_viols, tile_dups = res
-        m = pallas_metrics(cfg, "htm", out, elapsed_us, None)
+        m = pallas_metrics(cfg, "htm", out, elapsed_us, None, plan=plan)
         # TM_TRACK abort-histogram analog (HTMHashBuild.hpp:134-142): the
         # per-tile violation fractions of the optimistic sorter, a chunk
         # being one of the port's tiles (the JAX package divides by its
@@ -355,7 +357,7 @@ def _htm_build_pallas(cfg: JoinConfig, r: Relation) -> JoinMetrics:
         m.extra["duplicateAliasFractions"] = [float(f) for f in dup_frac[:64]]
     else:
         out = res
-        m = pallas_metrics(cfg, "htm", out, elapsed_us, None)
+        m = pallas_metrics(cfg, "htm", out, elapsed_us, None, plan=plan)
     if sniff is not None:
         m.extra["adaptivePlan"] = _dialed_plan_extra(plan, sniff)
         m.extra["adaptiveTransactionSizeFinal"] = max(1, plan.window or 4096)
@@ -378,7 +380,8 @@ def _htm_join_pallas(r: Relation, s: Relation, cfg: JoinConfig) -> JoinMetrics:
                                 sort_s=not s.assume_sorted,
                                 unique_both=keys_unique_both(cfg))
     elapsed_us = (time.perf_counter() - t0) * 1e6
-    m = pallas_metrics(cfg, "htm", out, elapsed_us, out.matches)
+    m = pallas_metrics(cfg, "htm", out, elapsed_us, out.matches, plan=plan,
+                       sort_s=not s.assume_sorted)
     if cfg.track:
         # the join path's two failure modes: displacement violations of the
         # optimistic sorter, band overflow of the count

@@ -67,7 +67,8 @@ def npo_join(r: Relation, s: Optional[Relation] = None,
                                     sort_s=not s.assume_sorted,
                                     unique_both=keys_unique_both(cfg))
         elapsed_us = (time.perf_counter() - t0) * 1e6
-        m = pallas_metrics(cfg, "npo", out, elapsed_us, out.matches)
+        m = pallas_metrics(cfg, "npo", out, elapsed_us, out.matches,
+                           plan=plan, sort_s=not s.assume_sorted)
         m.totalOverflows = out.overflow_tiles
         return m
     rkeys, skeys = resolve_relations(r, s, cfg)

@@ -166,7 +166,8 @@ def radix_join(r: Relation, s: Optional[Relation] = None,
                                     unique_both=keys_unique_both(cfg))
         elapsed_us = (time.perf_counter() - t0) * 1e6
         plan = BandedPlan(None, presort, False, None)
-        m = pallas_metrics(cfg, "radix", out, elapsed_us, out.matches)
+        m = pallas_metrics(cfg, "radix", out, elapsed_us, out.matches,
+                           plan=plan, sort_s=not s.assume_sorted)
         m.partitionTimeInMicroseconds = elapsed_us
         m.extra["radixBits"] = cfg.radix_bits
         m.extra["numPasses"] = cfg.radix_passes

@@ -34,8 +34,8 @@ from ..utils.metrics import JoinMetrics
 from ..utils.timing import PhaseTimer, fence_outputs
 from .banded_backend import (DEFAULT_TILE, banded_join_pipelined,
                              sort_probe_side, to_tiles_pow2)
-from .common import (keys_unique_both, pallas_metrics, resolve_relations,
-                     use_pallas_engine)
+from .common import (BandedPlan, keys_unique_both, pallas_metrics,
+                     resolve_relations, use_pallas_engine)
 
 
 def _sort_keys(keys: torch.Tensor) -> torch.Tensor:
@@ -70,7 +70,9 @@ def _engine_join(r: Relation, s: Relation, cfg: JoinConfig) -> JoinMetrics:
                                 unique_both=keys_unique_both(cfg), s2d=s2d)
     merge_us = (time.perf_counter() - t1) * 1e6
     m = pallas_metrics(cfg, "sortmerge", out, sort_us + merge_us,
-                       out.matches)
+                       out.matches,
+                       plan=BandedPlan(None, not sorted_in, sorted_in, None),
+                       sort_s=not s.assume_sorted)
     m.sortTimeInMicroseconds = sort_us
     m.mergeTimeInMicroseconds = merge_us
     m.probeTimeInMicroseconds = merge_us

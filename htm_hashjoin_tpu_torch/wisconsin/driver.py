@@ -21,8 +21,7 @@ import os
 import time
 from typing import Any, Dict, Optional, Union
 
-import torch
-
+from ..utils.device import entry_device
 from ..utils.timing import fence_outputs
 from .conf import parse_conf
 from .hashfn import hash_factory
@@ -76,16 +75,6 @@ class MultijoinResult:
         return json.dumps(line)
 
 
-def _device(device) -> torch.device:
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("the multijoin runs on a CUDA device and none is "
-                           "available (pass device= to run_multijoin to run "
-                           "the plain versions on the CPU)")
-    return torch.device("cuda")
-
-
 def load_side(side_conf: Dict[str, Any], base_path: str, page_size: int,
               device) -> WriteTable:
     """Build or load one input table on ``device`` (main.cpp:263-289:
@@ -107,7 +96,7 @@ def run_multijoin(conf: Union[str, Dict[str, Any]], *,
     """Run one configured join end to end on ``device`` (None: the CUDA
     device, which must exist).  ``conf`` is a parsed dict or a path to a
     libconfig ``.conf`` file (the reference's own files work)."""
-    dev = _device(device)
+    dev = entry_device(device, "the multijoin")
     if isinstance(conf, str):
         conf_dir = os.path.dirname(os.path.abspath(conf))
         conf = parse_conf(conf)

@@ -2,7 +2,8 @@
 JoinConfig (the argv lists of ``tests/test_cli.py`` and more), lines run on
 the CPU carry the JAX CLI's key set (JAX with ``--backend pallas``) and the
 reference's invariants, every ``--algo`` name runs, ``--backend xla``
-gives the JAX CLI's line, and what is not ported yet raises, naming its
+gives the JAX CLI's line, ``--profile``, ``--counters`` and
+``--throughput`` run, and what is not ported yet raises, naming its
 ROADMAP item by title."""
 
 import dataclasses
@@ -171,13 +172,45 @@ def test_backend_xla_line_equals_jax(capsys, argv):
 
 
 @pytest.mark.parametrize("flags,title", [
-    (["--meshShape", "8"], "Distributed"),
-    (["--profile", "/nowhere"], "Profiler, counters"),
-    (["--counters"], "Profiler, counters"),
-    (["--throughput"], "Profiler, counters")])
+    (["--meshShape", "8"], "Distributed")])
 def test_unported_flags_raise(flags, title):
     with pytest.raises(NotImplementedError, match=f"queue 1, {title}"):
         cli.main(["--algo", "htm", "--rSize", "1024"] + flags, device=CPU)
+
+
+@pytest.mark.parametrize("flag", ["--profile", "--counters", "--throughput"])
+def test_profiler_flags_run(flag, tmp_path, capsys):
+    """--profile writes a trace of the join, --counters puts the default
+    events in the line (and ends its session), --throughput prints the
+    ns/tuple report after the line, as the JAX CLI does."""
+    import glob
+    from htm_hashjoin_tpu_torch.utils.profiler import active_counters
+    argv = ["--algo", "atomic", "--rSize", "4096", "--backend", "xla", flag]
+    if flag == "--profile":
+        argv.append(str(tmp_path / "prof"))
+    assert cli.main(argv, device=CPU) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    line = json.loads(out[0])
+    assert line["totalMatches"] == 4096 and "backend" not in line
+    assert len(out) == (2 if flag == "--throughput" else 1)
+    if flag == "--profile":
+        assert glob.glob(str(tmp_path / "prof" / "*.pt.trace.json*"))
+    if flag == "--counters":
+        assert active_counters() is None
+        assert set(line["counters"]) == {"build", "probe"}
+        for events in line["counters"].values():
+            assert set(events) == {"flops", "bytes", "intensity",
+                                   "bandwidth"}
+            assert events["bytes"] >= 4 * 4096
+    else:
+        assert "counters" not in line
+    if flag == "--throughput":
+        rep = json.loads(out[1])
+        total = (line["hashBuildTimeInMicroseconds"]
+                 + line["probeTimeInMicroseconds"])
+        assert rep["numTuples"] == 2 * 4096
+        assert rep["totalTimeUsecs"] == total
+        assert rep["tuplesPerSecond"] == 2 * 4096 / (total * 1e-6)
 
 
 def test_main_without_cuda_or_device_raises(monkeypatch):

@@ -742,3 +742,54 @@ def test_multijoin_confs_on_the_card(dev, name):
     want = kv_pairs(rid_of_key[probe.column(1).long()], probe.column(2))
     assert torch.equal(kv_pairs(res.output.column(1), res.output.column(2)),
                        want)
+
+
+def test_testbed_copy_rate_is_under_the_data_sheet(dev):
+    """The card's own copy rate: a chain of dependent device copies, read
+    plus write, at most the H100's 3.35 TB/s (5 % for the clock)."""
+    from htm_hashjoin_tpu_torch.benchmarks import memory_bandwidth
+    rep = memory_bandwidth(26, reps=3, device=dev)
+    assert rep["device"] == torch.cuda.get_device_name(dev)
+    assert 0 < rep["gbps"] <= 3350 * 1.05
+    assert 0 < rep["gbpsSingleFenced"] <= 3350 * 1.05
+
+
+@pytest.mark.parametrize("argv", [
+    ["--algo", "htm", "--dataDistr", "local_shuffle"],
+    ["--algo", "atomic", "--backend", "xla", "--noProbe", "--dataDistr",
+     "shuffle"],
+    ["--algo", "htm", "--dataDistr", "pk", "--sSize", "4194304"]])
+def test_counters_bandwidth_is_under_the_copy_rate(dev, capsys, argv):
+    from htm_hashjoin_tpu_torch.benchmarks import memory_bandwidth
+    rate = memory_bandwidth(26, reps=3, device=dev)["gbps"]
+    n = 1 << 22
+    assert cli.main(argv + ["--rSize", str(n), "--counters", "--throughput"],
+                    device=dev) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    line, rep = json.loads(out[-2]), json.loads(out[-1])
+    assert line["inputSum"] == line["outputSum"]
+    for events in line["counters"].values():
+        assert set(events) == {"flops", "bytes", "intensity", "bandwidth"}
+        assert 0 <= events["bandwidth"] <= rate * 1.05
+    total = line["hashBuildTimeInMicroseconds"] + (
+        line.get("probeTimeInMicroseconds") or 0.0)
+    assert rep["tuplesPerSecond"] == pytest.approx(
+        rep["numTuples"] / (total * 1e-6))
+
+
+def test_harness_grid_on_the_card_equals_the_cpu(dev, tmp_path):
+    """AtomicsVsHTMVsNoCC at 2^20 (sorted and shuffled unique keys, whose
+    lines do not depend on the generator's bits): every line on the card
+    equals the CPU's but for the times, and the logs are written."""
+    from htm_hashjoin_tpu_torch.harness import run_grid
+    from htm_hashjoin_tpu_torch.harness.runner import clear_cache
+    got = run_grid("AtomicsVsHTMVsNoCC", scale=20, reps=1, echo=False,
+                   out_dir=str(tmp_path), device=dev)
+    want = run_grid("AtomicsVsHTMVsNoCC", scale=20, reps=1, echo=False,
+                    device="cpu")
+    clear_cache()
+    untimed = [{k: v for k, v in json.loads(line).items() if "Time" not in k}
+               for line in got + want]
+    assert untimed[:6] == untimed[6:]
+    assert (tmp_path / "AtomicsVsHTMVsNoCC_log1").read_text().split("\n")[:6] \
+        == got

@@ -39,7 +39,11 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
         " sort_kv_tiles)\n"
         "import htm_hashjoin_tpu_torch.wisconsin\n"
         "import htm_hashjoin_tpu_torch.wisconsin.__main__\n"
-        "from htm_hashjoin_tpu_torch.utils import metrics, timing, validate\n"
+        "from htm_hashjoin_tpu_torch.utils import (device, metrics, profiler,"
+        " timing, validate)\n"
+        "from htm_hashjoin_tpu_torch.data import native, persist\n"
+        "import htm_hashjoin_tpu_torch.benchmarks.__main__\n"
+        "import htm_hashjoin_tpu_torch.harness.__main__\n"
         "from htm_hashjoin_tpu_torch.ops import _build\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('htm_hashjoin_tpu.') or m == 'htm_hashjoin_tpu']\n"
