@@ -1414,24 +1414,37 @@ def _wisconsin(dev, card, errs, times) -> dict:
     errs["sort_kv_tiles"] = max(errs["sort_kv_tiles"], err)
     _require(not err, f"sort_kv_tiles differs from its plain version at {what}")
     bound = _bound_ms((t, pay), got)
-    del got, want
+    del got
+
+    def library():
+        """K7a's function in torch.sort: even blocks ascending, odd blocks
+        descending, both stable, then a gather of the values (the plain
+        version sorts every block first and the odd ones again)."""
+        k = t.view(-1, block)
+        keys = torch.empty_like(k)
+        idx = torch.empty(k.shape, dtype=torch.int64, device=k.device)
+        keys[0::2], idx[0::2] = torch.sort(k[0::2], dim=1, stable=True)
+        keys[1::2], idx[1::2] = torch.sort(k[1::2], dim=1, descending=True,
+                                           stable=True)
+        return keys.view(-1), torch.gather(pay.view(-1, block), 1,
+                                           idx).view(-1)
+
+    lib = library()
+    _require(torch.equal(lib[0], want[0]) and torch.equal(lib[1], want[1]),
+             f"the library stand-in for sort_kv_tiles differs at {what}")
+    del lib, want
     ms = _events_ms(lambda: skv.sort_kv_tiles(t, pay, tile=block,
                                               alternate=True), 3)
     plain_ms = _events_ms(lambda: skv.sort_kv_tiles_ref(t, pay, tile=block,
                                                         alternate=True), 3)
-
-    def library():   # one torch.sort of the blocks, then gather the values
-        by_key = torch.sort(t.view(-1, block), dim=1)
-        return by_key.values, torch.gather(pay.view(-1, block), 1,
-                                           by_key.indices)
-
     library_ms = _events_ms(library, 3)
     times["sort_kv_tiles"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                                   library_ms=library_ms,
                                   kernel_phase_launches=skv.LAUNCHES - before)
     print(f"kernel times: sort_kv_tiles at {what}, {block}-pair blocks: "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (block torch.sort"
-          f" + gather) {library_ms:.4f} ms, bound {bound:.4f} ms, "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (stable "
+          f"torch.sort of even blocks up, odd blocks down, + gather) "
+          f"{library_ms:.4f} ms, bound {bound:.4f} ms, "
           f"max_abs_err={err}, {skv.LAUNCHES - before} launches [{card}]")
     del t, pay
     torch.cuda.empty_cache()
@@ -1577,13 +1590,15 @@ def _persistence(dev, card) -> None:
             calls.append(1)
             return Relation(shuffled_keys(m, 5, dev))
 
-        a = persist.cached_relation(cfg, "r", tmp, generate, device=dev)
-        b = persist.cached_relation(cfg, "r", tmp, generate, device=dev)
-        cached = len(calls) == 1 and b.keys.device == rel.keys.device \
-            and torch.equal(a.keys, b.keys)
+        # no device given: a miss and a hit both land on the card
+        a = persist.cached_relation(cfg, "r", tmp, generate)
+        b = persist.cached_relation(cfg, "r", tmp, generate)
+        cached = len(calls) == 1 and torch.equal(a.keys, b.keys) and \
+            a.keys.device == b.keys.device == rel.keys.device
     print(f"measure: persistence 2^24 keys + payloads: .npz round trip "
           f"equal: {same} ({secs:.3f} s); cached_relation generated "
-          f"{len(calls)} time(s) over two calls [{card}]")
+          f"{len(calls)} time(s) over two calls, both on "
+          f"{a.keys.device}/{b.keys.device} [{card}]")
     _require(same and cached, "persistence round trip or cache failed")
 
 

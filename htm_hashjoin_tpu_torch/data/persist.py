@@ -11,6 +11,7 @@ loads ``.tbl`` text files (table.cpp:198-204).
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -20,6 +21,7 @@ import torch
 
 from ..config import JoinConfig
 from ..relation import Relation
+from ..utils.device import entry_device
 
 
 def cache_key(cfg: JoinConfig, side: str) -> str:
@@ -53,8 +55,9 @@ def save_relation(rel: Relation, path: str) -> None:
 
 
 def load_relation(path: str, device=None) -> Relation:
-    """Read a relation written by either package onto ``device`` (the CPU
+    """Read a relation written by either package onto ``device`` (the card
     when None)."""
+    device = entry_device(device, "load_relation")
     if path.endswith(".tbl"):
         data = np.loadtxt(path, delimiter="|", dtype=np.int64, ndmin=2)
         return Relation(torch.from_numpy(data[:, 0].astype(np.int32)).to(device),
@@ -70,13 +73,17 @@ def load_relation(path: str, device=None) -> Relation:
 
 def cached_relation(cfg: JoinConfig, side: str, cache_dir: str, generate,
                     device=None) -> Relation:
-    """Load the relation for (cfg, side) from cache_dir onto ``device``,
-    generating (``generate()``) and persisting on a miss (the
-    PERSIST_RELATIONS read-through behavior, generator.c:211-257)."""
+    """Load the relation for (cfg, side) from cache_dir onto ``device`` (the
+    card when None), generating (``generate()``, on any device) and
+    persisting on a miss (the PERSIST_RELATIONS read-through behavior,
+    generator.c:211-257).  A hit and a miss give the same device."""
+    device = entry_device(device, "cached_relation")
     os.makedirs(cache_dir, exist_ok=True)
     path = os.path.join(cache_dir, cache_key(cfg, side) + ".npz")
     if os.path.exists(path):
         return load_relation(path, device)
     rel = generate()
     save_relation(rel, path)
-    return rel
+    return dataclasses.replace(
+        rel, keys=rel.keys.to(device),
+        payloads=None if rel.payloads is None else rel.payloads.to(device))

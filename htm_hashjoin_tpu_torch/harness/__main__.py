@@ -6,7 +6,7 @@ import sys
 
 from ..utils.profiler import PerfCounters, disable_counters, enable_counters
 from .grids import GRIDS
-from .runner import run_all, run_grid
+from .runner import LOG_DIR, run_all, run_grid
 
 
 def main(argv=None, device=None) -> int:
@@ -18,7 +18,8 @@ def main(argv=None, device=None) -> int:
     p.add_argument("--reps", type=int, default=5,
                    help="repetitions per grid (runner.sh N=5)")
     p.add_argument("--outDir", default=None,
-                   help="write <grid>_log<i> files here")
+                   help="write <grid>_log<i> files here ('all' writes to "
+                        f"{LOG_DIR} without it)")
     p.add_argument("--pipelineDepth", type=int, default=1,
                    help="sustained-throughput timing: enqueue K back-to-back "
                         "joins per point, fence once (the single-run time is "
@@ -34,7 +35,7 @@ def main(argv=None, device=None) -> int:
     try:
         if a.grid == "all":
             run_all(scale=a.scale, reps=a.reps,
-                    out_dir=a.outDir or "experiments/logs",
+                    out_dir=a.outDir or LOG_DIR,
                     pipeline_depth=a.pipelineDepth, device=device)
         else:
             run_grid(a.grid, scale=a.scale, reps=a.reps, out_dir=a.outDir,

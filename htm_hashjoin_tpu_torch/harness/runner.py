@@ -34,6 +34,11 @@ from .grids import GRIDS, RUNNER_ORDER
 _GEN_CACHE: "dict[tuple, tuple]" = {}
 _GEN_CACHE_CAP = 2
 
+# run_all's log directory: beside the JAX package's experiments/logs (same
+# file names), so that the two runners' logs diff and neither overwrites
+# the other's
+LOG_DIR = "experiments/logs_torch"
+
 
 def _relations_for(cfg: JoinConfig, dev: torch.device):
     key = (cfg.data_distr, cfg.r_size, cfg.s_size, cfg.distinct_keys,
@@ -106,7 +111,7 @@ def run_grid(name: str, *, scale: int = 20, reps: int = 5,
 
 
 def run_all(*, scale: int = 20, reps: int = 5,
-            out_dir: str = "experiments/logs",
+            out_dir: str = LOG_DIR,
             pipeline_depth: int = 1, device=None) -> None:
     """runner.sh: every grid, N repetitions, logs on disk."""
     for name in RUNNER_ORDER:

@@ -364,15 +364,13 @@ def _record_traffic(m: JoinMetrics, cfg: JoinConfig, plan: BandedPlan,
 
 
 def pallas_metrics(cfg: JoinConfig, algo: str, outcome, elapsed_us: float,
-                   matches: Optional[int],
-                   plan: Optional[BandedPlan] = None,
+                   matches: Optional[int], plan: BandedPlan,
                    sort_s: bool = False) -> JoinMetrics:
     """Fold a BandedJoinOutcome into the reference metrics schema (the
     ``backend`` name stays the JAX package's, so that lines compare).
 
-    ``plan`` and ``sort_s`` feed the ``--counters`` traffic model: a caller
-    that ran a presort or a device sort of S passes them, or the line's
-    bytes undercount."""
+    ``plan`` (the plan the join ran) and ``sort_s`` (whether it sorted S on
+    the device) feed the ``--counters`` traffic model."""
     m = JoinMetrics(algo=algo, rSize=cfg.r_size,
                     transactionSize=cfg.transaction_size,
                     probeLength=cfg.probe_length,
@@ -385,8 +383,7 @@ def pallas_metrics(cfg: JoinConfig, algo: str, outcome, elapsed_us: float,
         m.totalMatches = matches
     m.extra["backend"] = "pallas_banded"
     m.extra["resorted"] = outcome.resorted
-    _record_traffic(m, cfg, plan or BandedPlan(None, False, False, None),
-                    matches is not None, sort_s, elapsed_us)
+    _record_traffic(m, cfg, plan, matches is not None, sort_s, elapsed_us)
     if cfg.r_size:
         # fractions, with the TM_RETRY rule (HTMHashBuild.hpp:410-415)
         m.failedTransactionPercentage = m.failedTransactions / cfg.r_size

@@ -7,9 +7,9 @@ here:
        -> ``PhaseTimer`` (timing.py), ending each phase in a synchronize.
   2. rdtsc cycles + cycles-per-tuple (mc/src/rdtsc.h:35-57; print_timing,
      mc/src/no_partitioning_join.c:313-333)
-       -> ``throughput_report``: ns/tuple, tuples/s, and cycles/tuple under
-          a clock taken from the environment (the JAX package's
-          TPU_CLOCK_GHZ, unset by default).
+       -> ``throughput_report``: ns/tuple and tuples/s.  No cycles/tuple:
+          the card's clock moves under load and power limit, and ns/tuple
+          carries the same measurement.
   3. Intel PCM hardware counters, 4 events programmed from pcm.cfg
      (mc/src/perf_counters.c:60-107, mc/pcm.cfg)
        -> ``PerfCounters``: named events over a cost model, programmed from
@@ -33,7 +33,6 @@ per-phase PCM dumps).
 from __future__ import annotations
 
 import contextlib
-import os
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
@@ -41,28 +40,18 @@ import torch
 
 
 # ---------------------------------------------------------------------------
-# Tier 2: throughput / cycles-per-tuple reporting
+# Tier 2: throughput reporting
 # ---------------------------------------------------------------------------
-
-def device_clock_ghz() -> float:
-    """Device clock for the cycles-per-tuple conversion: TPU_CLOCK_GHZ as
-    the JAX package reads it, 0 (no cyclesPerTuple field) when unset."""
-    return float(os.environ.get("TPU_CLOCK_GHZ", "0") or 0)
-
 
 def throughput_report(num_tuples: int, micros: float) -> Dict[str, float]:
     """print_timing analog (mc/src/no_partitioning_join.c:313-333): total
-    time, ns/tuple, tuples/s (+cycles/tuple when a clock is configured)."""
-    rep = {
+    time, ns/tuple, tuples/s."""
+    return {
         "numTuples": num_tuples,
         "totalTimeUsecs": micros,
         "nsPerTuple": (micros * 1e3 / num_tuples) if num_tuples else 0.0,
         "tuplesPerSecond": (num_tuples / (micros * 1e-6)) if micros else 0.0,
     }
-    ghz = device_clock_ghz()
-    if ghz:
-        rep["cyclesPerTuple"] = rep["nsPerTuple"] * ghz
-    return rep
 
 
 # ---------------------------------------------------------------------------

@@ -793,3 +793,20 @@ def test_harness_grid_on_the_card_equals_the_cpu(dev, tmp_path):
     assert untimed[:6] == untimed[6:]
     assert (tmp_path / "AtomicsVsHTMVsNoCC_log1").read_text().split("\n")[:6] \
         == got
+
+
+def test_cached_relation_lands_on_the_card_without_a_device(dev, tmp_path):
+    """A miss (a CPU generator) and a hit both give card tensors when no
+    device is passed."""
+    from htm_hashjoin_tpu_torch.config import Distribution, JoinConfig
+    from htm_hashjoin_tpu_torch.data import persist
+    from htm_hashjoin_tpu_torch.relation import Relation
+    cfg = JoinConfig(r_size=1 << 12, data_distr=Distribution.SORTED)
+    keys = torch.arange(1, (1 << 12) + 1, dtype=torch.int32)
+    miss = persist.cached_relation(cfg, "r", str(tmp_path),
+                                   lambda: Relation(keys))
+    hit = persist.cached_relation(cfg, "r", str(tmp_path),
+                                  lambda: pytest.fail("regenerated"))
+    assert miss.keys.is_cuda and hit.keys.is_cuda
+    assert torch.equal(miss.keys, hit.keys) and torch.equal(hit.keys.cpu(),
+                                                            keys)

@@ -134,6 +134,20 @@ def test_counters_config_file_programs_the_events(tmp_path, capsys):
             assert set(events) == {"mem", "ai"}
 
 
+def test_all_writes_its_own_log_directory(monkeypatch, tmp_path, capsys):
+    """``all`` without --outDir logs beside the JAX runner's
+    experiments/logs, never into it."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(runner, "RUNNER_ORDER", ["track", "adaptive2"])
+    assert main(["all", "--scale", "5", "--reps", "1"], device=CPU) == 0
+    capsys.readouterr()
+    logs = tmp_path / runner.LOG_DIR
+    assert sorted(p.name for p in logs.iterdir()) == ["adaptive2_log1",
+                                                      "track_log1"]
+    assert runner.LOG_DIR != "experiments/logs"
+    assert not (tmp_path / "experiments" / "logs").exists()
+
+
 def test_mesh_shape_and_unknown_grids_raise():
     cfg = dataclasses.replace(next(iter(GRIDS["probe"](5))), mesh_shape=(2,))
     with pytest.raises(NotImplementedError, match="Distributed"):

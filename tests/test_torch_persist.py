@@ -64,7 +64,7 @@ def test_jax_written_files_load_equal_in_the_port(kind, tmp_path):
     jpersist.save_relation(JRelation(jnp.asarray(keys),
                                      None if pay is None
                                      else jnp.asarray(pay)), path)
-    got = persist.load_relation(path)
+    got = persist.load_relation(path, device="cpu")
     want = jpersist.load_relation(path)
     assert got.keys.dtype == torch.int32
     np.testing.assert_array_equal(got.keys.numpy(), np.asarray(want.keys))
@@ -101,8 +101,8 @@ def test_npz_suffix_is_added_on_save_and_load(tmp_path):
     rel = Relation(torch.arange(1, 11, dtype=torch.int32))
     persist.save_relation(rel, str(tmp_path / "bare"))
     assert (tmp_path / "bare.npz").exists()
-    assert torch.equal(persist.load_relation(str(tmp_path / "bare")).keys,
-                       rel.keys)
+    assert torch.equal(persist.load_relation(str(tmp_path / "bare"),
+                                             device="cpu").keys, rel.keys)
 
 
 def test_cached_relation_reads_through_and_shares_jax_files(tmp_path):
@@ -114,7 +114,8 @@ def test_cached_relation_reads_through_and_shares_jax_files(tmp_path):
         return Relation(torch.randperm(256, generator=torch.Generator()
                                        .manual_seed(3)).to(torch.int32) + 1)
 
-    first = persist.cached_relation(cfg, "r", str(tmp_path), gen)
+    first = persist.cached_relation(cfg, "r", str(tmp_path), gen,
+                                    device="cpu")
     second = persist.cached_relation(cfg, "r", str(tmp_path), gen,
                                      device="cpu")
     assert len(calls) == 1 and torch.equal(first.keys, second.keys)
@@ -130,8 +131,41 @@ def test_cached_relation_reads_through_and_shares_jax_files(tmp_path):
                              lambda: JRelation(jnp.arange(1, 9,
                                                           dtype=jnp.int32)))
     srel = persist.cached_relation(cfg, "s", str(tmp_path),
-                                   lambda: pytest.fail("port regenerated"))
+                                   lambda: pytest.fail("port regenerated"),
+                                   device="cpu")
     assert srel.keys.tolist() == list(range(1, 9))
+
+
+def test_cached_relation_gives_a_miss_and_a_hit_one_device(tmp_path):
+    """A generator's relation on another device moves to the one asked for,
+    as the file read on a hit does; the generator's other fields stay."""
+    cfg = JoinConfig(r_size=64, data_distr=Distribution.SORTED)
+    rel = Relation(torch.arange(1, 65, dtype=torch.int32), assume_sorted=True)
+    miss = persist.cached_relation(cfg, "r", str(tmp_path),
+                                   lambda: rel, device="meta")
+    hit = persist.cached_relation(cfg, "r", str(tmp_path),
+                                  lambda: pytest.fail("regenerated"),
+                                  device="meta")
+    assert miss.keys.device == hit.keys.device == torch.device("meta")
+    assert miss.payloads is None and miss.assume_sorted
+
+
+def test_persistence_needs_cuda_without_a_device(monkeypatch, tmp_path):
+    """Without a device the relation goes to the card, on a hit as on a
+    miss; with no card both raise before generating anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = JoinConfig(r_size=16)
+    gen = lambda: pytest.fail("generated without a device")  # noqa: E731
+    with pytest.raises(RuntimeError, match="CUDA"):
+        persist.cached_relation(cfg, "r", str(tmp_path), gen)
+    persist.cached_relation(cfg, "r", str(tmp_path),
+                            lambda: Relation(torch.arange(1, 17)),
+                            device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        persist.cached_relation(cfg, "r", str(tmp_path), gen)
+    path = str(tmp_path / (persist.cache_key(cfg, "r") + ".npz"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        persist.load_relation(path)
 
 
 NATIVE_CALLS = [
