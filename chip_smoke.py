@@ -112,7 +112,22 @@ Phases, one line each:
                 and at 2^20 equal to the CPU's rows but for the time; a
                 2^24 relation through .npz and back, and the read-through
                 cache; the native generator's 2^27 keys (when its library
-                loads and runs on this host) through the headline join.
+                loads and runs on this host) through the headline join;
+ 13. distributed - the distributed join, eight shards on the card (a
+                device-mapping file names cuda:0 eight times, for this phase
+                only; the shards run one after another): cli.main
+                --meshShape 8 and 2,4 on 2^27 shuffled keys (exact, no
+                drops or repairs); --skewHandling on zipf(1.2) R over 2^23
+                keys (exact against a plain count, hot keys found); the
+                forced repair (capacity 1.0) on (8,) and (2, 4), exact with
+                no drops; drops without the repair; a (1,) mesh without the
+                mapping equal to the single-device radix join; a profile of
+                the flat, skew-plan and repair cases and scaling_point's
+                exchange / join / repair split at 2^27; the four
+                configurations at 2^20, the card's lines equal to the
+                CPU's; reference fault 9 at
+                2^22 (R key 0, S key INT32_MAX) exact; dryrun_multichip(8);
+                the scaling sweep at its defaults, every point exact.
 Then a JSON line of kernels (launches on the paths, largest error, the
 kernel's, its plain version's and a library call's time, and its bound: the
 bytes of its inputs and outputs over 3.35 TB/s; K7a, which no path runs,
@@ -128,6 +143,7 @@ is made.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import glob
 import gzip
 import io
@@ -165,6 +181,10 @@ from htm_hashjoin_tpu_torch.ops import scatter_tiles as sct
 from htm_hashjoin_tpu_torch.ops import sort_kv_tiles as skv
 from htm_hashjoin_tpu_torch.ops import sort_tiles as st
 from htm_hashjoin_tpu_torch.ops import tile_minmax as tmm
+from htm_hashjoin_tpu_torch.parallel import scaling
+from htm_hashjoin_tpu_torch.parallel.dist_join import distributed_join
+from htm_hashjoin_tpu_torch.parallel.dryrun import dryrun_multichip
+from htm_hashjoin_tpu_torch.parallel.mesh import MAPPING_ENV
 from htm_hashjoin_tpu_torch.relation import Relation
 from htm_hashjoin_tpu_torch.utils.profiler import tensor_bytes
 from htm_hashjoin_tpu_torch.wisconsin import parse_conf, run_multijoin
@@ -1669,6 +1689,215 @@ def _measurement(dev, card) -> dict:
     return total
 
 
+@contextlib.contextmanager
+def _mapping(path):
+    """$HTM_DEVICE_MAPPING names ``path`` (None: unset) inside the block
+    only; the variable is restored after it."""
+    old = os.environ.get(MAPPING_ENV)
+    try:
+        if path is None:
+            os.environ.pop(MAPPING_ENV, None)
+        else:
+            os.environ[MAPPING_ENV] = path
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(MAPPING_ENV, None)
+        else:
+            os.environ[MAPPING_ENV] = old
+
+
+def _dist_cfgs(n: int) -> dict:
+    """The phase's four configurations at n keys a side: flat and
+    hierarchical on shuffled keys, and on zipf(1.2) R over n/16 keys the
+    skew plan and the forced repair."""
+    zipf = dict(data_distr=Distribution.ZIPF, distinct_keys=n // 16,
+                zipf_param=1.2)
+    base = dict(algo=Algo.RADIX, r_size=n)
+    return {
+        "flat (8,) shuffle": JoinConfig(**base, mesh_shape=(8,),
+                                        data_distr=Distribution.SHUFFLE),
+        "hierarchical (2, 4) shuffle": JoinConfig(
+            **base, mesh_shape=(2, 4), data_distr=Distribution.SHUFFLE),
+        "skew plan (8,) zipf": JoinConfig(**base, mesh_shape=(8,),
+                                          skew_handling=True, **zipf),
+        "forced repair (2, 4) zipf": JoinConfig(
+            **base, mesh_shape=(2, 4), shuffle_capacity_factor=1.0, **zipf),
+    }
+
+
+def _dist_line(name, fn, card, total) -> dict:
+    """One distributed join through _run_path (counts 0 just before it,
+    read just after); its JSON line as a dict."""
+    res = {}
+    counts = _run_path(name, lambda: res.setdefault("d", fn()).get(
+        "totalMatches"), {}, card)
+    for k, v in counts.items():
+        total[k] += v
+    return res["d"]
+
+
+def _distributed(dev, card) -> dict:
+    """Phase 13: the distributed join, eight shards on the card through a
+    device-mapping file (``8 0 1 2 3 4 5 6 7``, named in
+    $HTM_DEVICE_MAPPING for this phase only).  The shards run one after
+    another, so every wall here is the total work of the sharded
+    algorithm on one card, not scaling."""
+    t0 = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+    n = 1 << LOG2_N
+    gauss = n * (n + 1) // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "device-mapping.txt")
+        with open(path, "w") as f:
+            f.write("8 0 1 2 3 4 5 6 7\n")
+        with _mapping(path):
+            # the CLI, flat and hierarchical, on 2^27 shuffled keys
+            for shape in ("8", "2,4"):
+                argv = ["--algo", "radix", "--rSize", str(n), "--dataDistr",
+                        "shuffle", "--meshShape", shape]
+                d = _dist_line(f"cli {' '.join(argv)}",
+                               lambda: _cli_line(argv, dev), card, total)
+                print(f"distributed: cli --meshShape {shape}: "
+                      f"{json.dumps(d)} [{card}]")
+                _require(d["algo"] == "dist_radix" and d["totalMatches"] == n
+                         and d["inputSum"] == d["outputSum"] == gauss
+                         and d["droppedR"] == d["droppedS"] == 0
+                         and d["repairedR"] == d["repairedS"] == 0
+                         and d["nDevices"] == 8
+                         and d["hierarchical"] == ("," in shape),
+                         f"cli --meshShape {shape}: {d}")
+                torch.cuda.empty_cache()
+            _distributed_zipf(dev, card, total, n)
+            fcfg = _dist_cfgs(n)["flat (8,) shuffle"]
+            r, s = build_relations(fcfg, dev)
+            _profile(f"distributed (8,) shuffle 2^{LOG2_N}",
+                     lambda: distributed_join(r, s, fcfg), card)
+            del r, s
+            torch.cuda.empty_cache()
+            pt = scaling.scaling_point((8,), n, n, reps=2, device=dev)
+            print(f"distributed: scaling_point((8,), 2^{LOG2_N}, "
+                  f"2^{LOG2_N}) pk x sorted, best of 2: exchange "
+                  f"{pt['exchangeTimeUs'] / 1e3:.3f} ms, join "
+                  f"{pt['joinTimeUs'] / 1e3:.3f} ms, repair "
+                  f"{pt['repairTimeUs'] / 1e3:.3f} ms, total "
+                  f"{pt['totalTimeUs'] / 1e3:.3f} ms, exact {pt['exact']} "
+                  f"[{card}]")
+            _require(pt["exact"] and not pt["repairFired"],
+                     f"scaling_point at 2^{LOG2_N}: {pt}")
+            torch.cuda.empty_cache()
+            _distributed_small(dev, card, total)
+            dryrun_multichip(8, device=dev)
+            print("distributed: dryrun_multichip(8) on the card: ok")
+            lines = scaling.scaling_sweep(os.path.join(tmp, "scaling_log"),
+                                          reps=2, echo=False, device=dev)
+            print(scaling.summary(lines, scaling._available_devices(dev)),
+                  end="")
+            print(f"distributed: scaling sweep: {len(lines)} points, "
+                  f"{sum(p['exact'] for p in lines)} exact [{card}]")
+            _require(len(lines) == 36 and all(p["exact"] for p in lines),
+                     "the scaling sweep is not exact")
+    torch.cuda.empty_cache()
+    print(f"distributed: phase 13 took {time.perf_counter() - t0:.1f} s "
+          f"[{card}]")
+    return total
+
+
+def _distributed_zipf(dev, card, total, n) -> None:
+    """zipf(1.2) R over 2^23 keys x FK S at 2^27: the skew plan through the
+    CLI, the forced repair on (8,) and (2, 4), the reported drops without
+    repair, and a (1,) mesh (the card itself, no mapping) against the
+    single-device radix join, each held to a plain count."""
+    argv = ["--algo", "radix", "--rSize", str(n), "--dataDistr", "zipf",
+            "--distinctKeys", str(n // 16), "--zipfParam", "1.2",
+            "--skewHandling", "--meshShape", "8"]
+    d = _dist_line(f"cli {' '.join(argv)}", lambda: _cli_line(argv, dev),
+                   card, total)
+    cfg, _ = cli.parse_args(argv)
+    r, s = build_relations(cfg, dev)
+    exact = _plain_matches(r, s)
+    print(f"distributed: cli --skewHandling zipf: {json.dumps(d)}; exact "
+          f"{exact} [{card}]")
+    _require(d["totalMatches"] == exact and d["hotKeys"] > 0
+             and d["inputSum"] == d["outputSum"]
+             and d["droppedR"] == d["droppedS"] == 0,
+             f"the skew plan at 2^{LOG2_N}: {d}")
+    _profile(f"distributed (8,) skew plan zipf 2^{LOG2_N}",
+             lambda: distributed_join(r, s, cfg), card)
+    plain = dataclasses.replace(cfg, skew_handling=False,
+                                shuffle_capacity_factor=1.0)
+    for shape in ((8,), (2, 4)):
+        rcfg = dataclasses.replace(plain, mesh_shape=shape)
+        d = _dist_line(f"distributed_join {shape} zipf capacity 1.0",
+                       lambda: distributed_join(r, s, rcfg).to_dict(), card,
+                       total)
+        print(f"distributed: forced repair {shape}: {json.dumps(d)} "
+              f"[{card}]")
+        _require(d["repairedR"] + d["repairedS"] > 0
+                 and d["droppedR"] == d["droppedS"] == 0
+                 and d["totalMatches"] == exact
+                 and d["inputSum"] == d["outputSum"],
+                 f"forced repair {shape}: {d}")
+    rcfg = dataclasses.replace(plain, mesh_shape=(2, 4))
+    _profile(f"distributed (2, 4) forced repair zipf 2^{LOG2_N}",
+             lambda: distributed_join(r, s, rcfg), card)
+    drop = distributed_join(r, s, dataclasses.replace(
+        plain, mesh_shape=(8,), residual_repair=False))
+    print(f"distributed: residual_repair=False (8,): {drop.to_json_line()} "
+          f"[{card}]")
+    _require(drop.extra["droppedR"] + drop.extra["droppedS"] > 0
+             and drop.totalMatches < exact, "no drops without the repair")
+    with _mapping(None):
+        one = distributed_join(r, s, dataclasses.replace(plain,
+                                                         mesh_shape=(1,)))
+    single = DISPATCH["radix"](r, s, dataclasses.replace(plain,
+                                                         mesh_shape=()))
+    print(f"distributed: (1,) mesh {one.totalMatches} ("
+          f"{one.hashBuildTimeInMicroseconds:.1f} us), DISPATCH radix "
+          f"{single.totalMatches} [{card}]")
+    _require(one.totalMatches == single.totalMatches == exact
+             and one.extra["nDevices"] == 1, "the (1,) mesh differs")
+    del r, s
+    torch.cuda.empty_cache()
+
+
+def _distributed_small(dev, card, total) -> None:
+    """The four configurations at 2^20, the card's line equal to the
+    CPU's on the same relations but for the times; then reference fault 9
+    at 2^22: R holding key 0 and S holding INT32_MAX join exactly."""
+    for name, cfg in _dist_cfgs(1 << 20).items():
+        r, s = build_relations(cfg, dev)
+        card_line = _dist_line(f"distributed_join 2^20 {name}",
+                               lambda: distributed_join(r, s, cfg).to_dict(),
+                               card, total)
+        cpu_line = distributed_join(Relation(r.keys.cpu()),
+                                    Relation(s.keys.cpu()), cfg).to_dict()
+        exact = _plain_matches(r, s)
+        print(f"distributed: 2^20 {name}: card equals the CPU: "
+              f"{_untimed(card_line) == _untimed(cpu_line)}; matches "
+              f"{card_line['totalMatches']} (exact {exact}) [{card}]")
+        _require(_untimed(card_line) == _untimed(cpu_line)
+                 and card_line["totalMatches"] == exact,
+                 f"2^20 {name}: card {card_line}, CPU {cpu_line}")
+        del r, s
+    m = 1 << 22
+    r = torch.arange(1, m + 1, dtype=torch.int32, device=dev)
+    s = r.clone()
+    r[100] = 0
+    s[200] = MAXI32
+    got = distributed_join(Relation(r), Relation(s),
+                           JoinConfig(algo=Algo.RADIX, r_size=m,
+                                      mesh_shape=(8,)))
+    exact = _plain_matches(Relation(r), Relation(s))
+    print(f"distributed: fault 9 at 2^22 (R key 0, S key INT32_MAX): "
+          f"matches {got.totalMatches}, exact {exact}, sums "
+          f"{got.inputSum} / {got.outputSum} [{card}]")
+    _require(got.totalMatches == exact == m - 2 and got.conserved,
+             "padding matched a real key")
+    del r, s
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1833,11 +2062,12 @@ def main() -> int:
     # 6-7. every other path at 2^27, then K2-K5 at their paths' shapes
     counts = _paths(dev, card, errs, times)
     counts["fused_sort_count"] += main_counts["fused_sort_count"]
-    # 8-12. K6 and the multipass radix join, the CLI's paths, the hash
-    # joins, K7 and the Wisconsin multijoin, then the measurement layer
+    # 8-13. K6 and the multipass radix join, the CLI's paths, the hash
+    # joins, K7 and the Wisconsin multijoin, the measurement layer, then
+    # the distributed join
     for more in (_radix(dev, card, errs, times), _cli_paths(dev, card),
                  _hash_joins(dev, card), _wisconsin(dev, card, errs, times),
-                 _measurement(dev, card)):
+                 _measurement(dev, card), _distributed(dev, card)):
         for k, v in more.items():
             counts[k] += v
     for name in KERNELS:

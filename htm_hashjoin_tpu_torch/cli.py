@@ -9,12 +9,12 @@ versions instead (the tests do).
 
 Every ``--algo`` name runs, the mc names (``NPO``, ``NPO_st``, ``PRO``
 ...) included, and so does ``--backend xla`` (the scatter builds).
+``--meshShape`` runs the distributed join (``parallel/dist_join.py``) on a
+mesh of shards placed by the device-mapping file.
 ``--profile DIR`` writes a torch.profiler trace of the join (not of the
 generation) into DIR, ``--counters [CFG]`` puts per-phase counters in the
 line (``utils/profiler.py`` says what they count), and ``--throughput``
-prints the ns/tuple report after the line.  Not ported yet, and refused
-with ``NotImplementedError``: ``--meshShape`` (ROADMAP queue 1,
-"Distributed").
+prints the ns/tuple report after the line.
 
 Usage:
     python -m htm_hashjoin_tpu_torch.cli --algo htm --rSize $((2**20)) --dataDistr local_shuffle
@@ -30,6 +30,7 @@ import sys
 from .config import Algo, Distribution, JoinConfig
 from .data.generators import build_relations
 from .joins import DISPATCH
+from .parallel.dist_join import distributed_join
 from .utils.device import entry_device
 from .utils.profiler import (PerfCounters, disable_counters, enable_counters,
                              throughput_report, trace)
@@ -177,10 +178,6 @@ def parse_args(argv=None):
 
 def main(argv=None, device=None) -> int:
     cfg, (profile_dir, want_throughput, counters) = parse_args(argv)
-    if cfg.mesh_shape:
-        raise NotImplementedError("--meshShape: the distributed join is not "
-                                  "ported yet (ROADMAP queue 1, "
-                                  "Distributed)")
     dev = entry_device(device, "htm_hashjoin_tpu_torch.cli")
     if counters:
         enable_counters(None if counters == "default"
@@ -189,7 +186,10 @@ def main(argv=None, device=None) -> int:
         r, s = build_relations(cfg, dev)
         r.fence(), s.fence()   # generation is not part of the timed phases
         with trace(profile_dir) if profile_dir else contextlib.nullcontext():
-            metrics = DISPATCH[cfg.algo.value](r, s, cfg)
+            if cfg.mesh_shape:
+                metrics = distributed_join(r, s, cfg)
+            else:
+                metrics = DISPATCH[cfg.algo.value](r, s, cfg)
     finally:
         if counters:
             disable_counters()

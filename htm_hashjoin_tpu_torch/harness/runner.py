@@ -23,6 +23,7 @@ import torch
 from ..config import JoinConfig
 from ..data.generators import build_relations
 from ..joins import DISPATCH
+from ..parallel.dist_join import distributed_join
 from ..utils.device import entry_device
 from ..utils.timing import fence_outputs
 from .grids import GRIDS, RUNNER_ORDER
@@ -62,12 +63,11 @@ def clear_cache() -> None:
 def run_config(cfg: JoinConfig, device=None) -> str:
     """One grid point -> one JSON metrics line (the reference binaries'
     stdout contract, HTMHashBuild.hpp:417-449)."""
-    if cfg.mesh_shape:
-        raise NotImplementedError("mesh_shape: the distributed join is not "
-                                  "ported yet (ROADMAP queue 1, "
-                                  "Distributed)")
     r, s = _relations_for(cfg, entry_device(device, "the harness"))
-    metrics = DISPATCH[cfg.algo.value](r, s, cfg)
+    if cfg.mesh_shape:
+        metrics = distributed_join(r, s, cfg)
+    else:
+        metrics = DISPATCH[cfg.algo.value](r, s, cfg)
     if cfg.s_distr is not None:
         # self-describing rows for the S-side sweeps (skewprobe): without
         # these the zipf points are indistinguishable in the log

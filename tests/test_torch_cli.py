@@ -3,8 +3,7 @@ JoinConfig (the argv lists of ``tests/test_cli.py`` and more), lines run on
 the CPU carry the JAX CLI's key set (JAX with ``--backend pallas``) and the
 reference's invariants, every ``--algo`` name runs, ``--backend xla``
 gives the JAX CLI's line, ``--profile``, ``--counters`` and
-``--throughput`` run, and what is not ported yet raises, naming its
-ROADMAP item by title."""
+``--throughput`` run, and ``--meshShape`` runs the distributed join."""
 
 import dataclasses
 import json
@@ -173,9 +172,24 @@ def test_backend_xla_line_equals_jax(capsys, argv):
 
 @pytest.mark.parametrize("flags,title", [
     (["--meshShape", "8"], "Distributed")])
-def test_unported_flags_raise(flags, title):
-    with pytest.raises(NotImplementedError, match=f"queue 1, {title}"):
-        cli.main(["--algo", "htm", "--rSize", "1024"] + flags, device=CPU)
+def test_unported_flags_raise(flags, title, capsys, tmp_path, monkeypatch):
+    """The last flag that raised until its module was ported (ROADMAP queue
+    1, Distributed) now runs: ``--meshShape 8`` on the CPU, with a mapping
+    file that places 8 shards there, gives the JAX CLI's key set and an
+    exact ``dist_htm`` line."""
+    from htm_hashjoin_tpu_torch.parallel.mesh import MAPPING_ENV
+    path = tmp_path / "device-mapping.txt"
+    path.write_text("8 0 1 2 3 4 5 6 7\n")
+    monkeypatch.setenv(MAPPING_ENV, str(path))
+    argv = ["--algo", "htm", "--rSize", "1024"] + flags
+    got = run_line(capsys, argv, device=CPU)
+    want = run_line(capsys, argv, main=jcli.main)
+    assert title == "Distributed" and set(got) == set(want)
+    assert got["algo"] == want["algo"] == "dist_htm"
+    assert got["totalMatches"] == want["totalMatches"] == 1024
+    assert got["inputSum"] == got["outputSum"] == 1024 * 1025 // 2
+    assert got["nDevices"] == 8 and got["meshShape"] == [8]
+    assert got["droppedR"] == got["droppedS"] == 0
 
 
 @pytest.mark.parametrize("flag", ["--profile", "--counters", "--throughput"])

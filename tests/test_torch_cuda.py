@@ -7,7 +7,8 @@ planner chooses, and each scatter build's join (nocc, atomic, htm, npo,
 npo_st; sortmerge's plain route) with the card's line equal to the CPU's;
 K7a (the TPU's kv phase A, unstable) by the multiset rule
 within each tile, the Wisconsin kv split and three multijoin confs at a cut
-scale.
+scale, and the distributed join's four configurations (eight shards on the
+card) with the card's line equal to the CPU's.
 
 Needs a CUDA device and nvcc; elsewhere every test skips.  The file imports
 no jax, so it runs where jax is absent:
@@ -810,3 +811,45 @@ def test_cached_relation_lands_on_the_card_without_a_device(dev, tmp_path):
     assert miss.keys.is_cuda and hit.keys.is_cuda
     assert torch.equal(miss.keys, hit.keys) and torch.equal(hit.keys.cpu(),
                                                             keys)
+
+
+DIST_CASES = {
+    "flat shuffle (8,)": dict(data_distr=Distribution.SHUFFLE,
+                              mesh_shape=(8,)),
+    "hierarchical shuffle (2, 4)": dict(data_distr=Distribution.SHUFFLE,
+                                        mesh_shape=(2, 4)),
+    "zipf skew plan (8,)": dict(data_distr=Distribution.ZIPF,
+                                distinct_keys=1 << 12, zipf_param=1.2,
+                                skew_handling=True, mesh_shape=(8,)),
+    "zipf forced repair (2, 4)": dict(data_distr=Distribution.ZIPF,
+                                      distinct_keys=1 << 12, zipf_param=1.2,
+                                      shuffle_capacity_factor=1.0,
+                                      mesh_shape=(2, 4)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DIST_CASES))
+def test_distributed_join_on_the_card_equals_the_cpu(dev, tmp_path,
+                                                     monkeypatch, case):
+    """Eight shards on the card (a mapping file wraps them onto it) at
+    2^16: the card's line equals the CPU's on the same relations but for
+    the times, and is exact."""
+    from htm_hashjoin_tpu_torch.parallel.dist_join import distributed_join
+    from htm_hashjoin_tpu_torch.parallel.mesh import MAPPING_ENV
+    path = tmp_path / "device-mapping.txt"
+    path.write_text("8 0 1 2 3 4 5 6 7\n")
+    monkeypatch.setenv(MAPPING_ENV, str(path))
+    cfg = JoinConfig(algo=Algo.RADIX, r_size=1 << 16, **DIST_CASES[case])
+    r, s = build_relations(cfg, dev)
+    got = distributed_join(r, s, cfg).to_dict()
+    want = distributed_join(Relation(r.keys.cpu()), Relation(s.keys.cpu()),
+                            cfg).to_dict()
+    assert {k: v for k, v in got.items() if "Time" not in k} == \
+        {k: v for k, v in want.items() if "Time" not in k}
+    rs = torch.sort(r.keys).values
+    exact = int((torch.searchsorted(rs, s.keys, right=True)
+                 - torch.searchsorted(rs, s.keys)).sum())
+    assert got["totalMatches"] == exact and got["inputSum"] == got["outputSum"]
+    assert got["droppedR"] == got["droppedS"] == 0
+    if "repair" in case:
+        assert got["repairedR"] + got["repairedS"] > 0

@@ -149,11 +149,29 @@ def test_all_writes_its_own_log_directory(monkeypatch, tmp_path, capsys):
 
 
 def test_mesh_shape_and_unknown_grids_raise():
-    cfg = dataclasses.replace(next(iter(GRIDS["probe"](5))), mesh_shape=(2,))
-    with pytest.raises(NotImplementedError, match="Distributed"):
-        harness.run_config(cfg, CPU)
+    """An unknown grid raises; a config with a mesh_shape runs (the next
+    test)."""
     with pytest.raises(ValueError, match="unknown grid"):
         harness.run_grid("nope", scale=5, device=CPU)
+
+
+def test_mesh_shape_config_runs_the_distributed_join(tmp_path, monkeypatch):
+    """A grid config with ``mesh_shape=(2,)`` runs the distributed join on
+    two CPU shards (a two-line mapping file): its line equals
+    ``distributed_join`` on the same relations, exactly."""
+    from htm_hashjoin_tpu_torch.parallel.dist_join import distributed_join
+    from htm_hashjoin_tpu_torch.parallel.mesh import MAPPING_ENV
+    path = tmp_path / "device-mapping.txt"
+    path.write_text("2\n0\n1\n")
+    monkeypatch.setenv(MAPPING_ENV, str(path))
+    cfg = dataclasses.replace(next(iter(GRIDS["probe"](5))), mesh_shape=(2,))
+    got = json.loads(harness.run_config(cfg, CPU))
+    r, s = build_relations(cfg, CPU)
+    want = distributed_join(r, s, cfg).to_dict()
+    assert untimed(got) == untimed(want)
+    assert got["algo"] == f"dist_{cfg.algo.value}" and got["nDevices"] == 2
+    assert got["totalMatches"] == 32 and got["inputSum"] == got["outputSum"]
+    runner.clear_cache()
 
 
 def test_entry_points_need_cuda_without_a_device(monkeypatch):

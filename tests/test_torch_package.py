@@ -45,6 +45,8 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
         "import htm_hashjoin_tpu_torch.benchmarks.__main__\n"
         "import htm_hashjoin_tpu_torch.harness.__main__\n"
         "from htm_hashjoin_tpu_torch.ops import _build\n"
+        "from htm_hashjoin_tpu_torch.parallel import (mesh, collectives,"
+        " dist_join, scaling, dryrun)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('htm_hashjoin_tpu.') or m == 'htm_hashjoin_tpu']\n"
         "print(bad, _build.build.cache_info().currsize,"
