@@ -127,7 +127,22 @@ Phases, one line each:
                 configurations at 2^20, the card's lines equal to the
                 CPU's; reference fault 9 at
                 2^22 (R key 0, S key INT32_MAX) exact; dryrun_multichip(8);
-                the scaling sweep at its defaults, every point exact.
+                the scaling sweep at its defaults, every point exact;
+ 14. experiments - entry() (the single-device entry step: no kernel) on the
+                card equal to the CPU's and to (2^16, 2^16 (2^16 + 1) / 2, 0),
+                and
+                ``python -m htm_hashjoin_tpu_torch.entry``'s main; the
+                adaptive dial experiment at its defaults (2^26, each plan's
+                warm median and launches, every rep exact; whether adaptive
+                beats both fixed plans is printed); the radix crossover at
+                its defaults (2^20..2^27, both engines' outputs held as
+                multisets and to their order; multipass/sort per size); the
+                eight reference grids no other phase runs at 2^27, one rep
+                each, every line conserving its key sum (and exact where it
+                probes) and each grid's kernels launched; then the source
+                paper's motivation comparison per locality window, PRO's
+                build time against the adaptive HTM build's (printed, not
+                required).
 Then a JSON line of kernels (launches on the paths, largest error, the
 kernel's, its plain version's and a library call's time, and its bound: the
 bytes of its inputs and outputs over 3.35 TB/s; K7a, which no path runs,
@@ -166,7 +181,12 @@ from htm_hashjoin_tpu_torch.data.generators import (build_relations,
                                                     local_shuffled_keys,
                                                     pk_keys, shuffled_keys,
                                                     sorted_keys, zipf_keys)
-from htm_hashjoin_tpu_torch.harness import GRIDS, run_grid, runner
+from htm_hashjoin_tpu_torch.entry import entry
+from htm_hashjoin_tpu_torch.entry import main as entry_main
+from htm_hashjoin_tpu_torch.experiments import adaptive_dial_bench as dial
+from htm_hashjoin_tpu_torch.experiments import kernel_launches
+from htm_hashjoin_tpu_torch.experiments import radix_crossover as rx
+from htm_hashjoin_tpu_torch.harness import GRIDS, report, run_grid, runner
 from htm_hashjoin_tpu_torch.joins import DISPATCH
 from htm_hashjoin_tpu_torch.joins import banded_backend as bb
 from htm_hashjoin_tpu_torch.joins.radix import radix_join
@@ -184,10 +204,11 @@ from htm_hashjoin_tpu_torch.ops import tile_minmax as tmm
 from htm_hashjoin_tpu_torch.parallel import scaling
 from htm_hashjoin_tpu_torch.parallel.dist_join import distributed_join
 from htm_hashjoin_tpu_torch.parallel.dryrun import dryrun_multichip
-from htm_hashjoin_tpu_torch.parallel.mesh import MAPPING_ENV
+from htm_hashjoin_tpu_torch.parallel.mesh import mapping_env
 from htm_hashjoin_tpu_torch.relation import Relation
 from htm_hashjoin_tpu_torch.utils.profiler import tensor_bytes
-from htm_hashjoin_tpu_torch.wisconsin import parse_conf, run_multijoin
+from htm_hashjoin_tpu_torch.wisconsin import (CONF_DIR, parse_conf,
+                                           run_multijoin)
 from htm_hashjoin_tpu_torch.wisconsin import partitioner as wpart
 from htm_hashjoin_tpu_torch.wisconsin.driver import load_side
 
@@ -220,7 +241,19 @@ HARNESS = {"probe": (5, {"fused_sort_count": 1, "sort_tiles": 1,
                          "banded_count": 1, "global_sort_tiles": 1,
                          "banded_count_narrow": 1}),
            "skewprobe": (1, {"global_sort_tiles": 1, "banded_count": 1})}
-WISCONSIN_CONFS = "htm_hashjoin_tpu/wisconsin/conf/"
+# the eight reference grids no other phase runs, for the experiments
+# phase: every point builds only; the builds sort tiles (K2) but on sorted
+# keys (presorted: no kernel), and PRO's partition sorts globally (K3)
+GRIDS_BUILD = {name: (1, expect) for name, expect in (
+    ("AtomicsVsHTMVsNoCC", {"sort_tiles": 1}),
+    ("SizeToAbortsAndTimeSorted", {}),
+    ("SizeToAbortsAndTimeShuffled", {"sort_tiles": 1}),
+    ("TSizeAndShuffleWindowstoTime", {"sort_tiles": 1}),
+    ("adaptive", {"sort_tiles": 1}), ("adaptive2", {"sort_tiles": 1}),
+    ("motivation", {"sort_tiles": 1, "global_sort_tiles": 1}),
+    ("track", {"sort_tiles": 1}))}
+# the port's own copies of the six shipped confs, found from its package path
+WISCONSIN_CONFS = os.path.join(CONF_DIR, "")
 # conf -> whether its splits sort through K7: every conf's hash node is a
 # ModuloHash over two int32 columns of 2^24 and 2^28 rows, so a side whose
 # partitioner hashes takes the kv split (partitioner.py:236-259)
@@ -399,7 +432,7 @@ def _reset_counts() -> None:
 
 
 def _counts() -> dict:
-    return {name: mod.LAUNCHES for name, (mod, _, _) in KERNELS.items()}
+    return kernel_launches()
 
 
 def _err(got, want) -> int:
@@ -1533,12 +1566,15 @@ def _counters_runs(dev, card, rate, total) -> None:
                  "the headline join's trace does not name K1's kernel")
 
 
-def _harness_grids(dev, card, total) -> None:
-    """The probe and skewprobe grids at 2^27 through run_grid into a
-    temporary --outDir; every line exact against a plain count of the same
-    relations, made anew from the grid's seeds."""
+def _harness_grids(dev, card, total, grids, phase) -> dict:
+    """Each grid of ``grids`` (name -> (pipeline depth, the kernels its
+    plans must launch)) at 2^27 through run_grid into a temporary --outDir;
+    every line conserves the key sum, and every line that probes is exact
+    against a plain count of the same relations, made anew from the grid's
+    seeds.  Returns each grid's lines."""
+    out = {}
     with tempfile.TemporaryDirectory() as out_dir:
-        for name, (depth, expect) in HARNESS.items():
+        for name, (depth, expect) in grids.items():
             res = {}
             counts = _run_path(
                 f"harness {name} 2^{LOG2_N} --pipelineDepth {depth}",
@@ -1552,11 +1588,13 @@ def _harness_grids(dev, card, total) -> None:
             lines = [json.loads(x) for x in res["lines"]]
             bad = []
             for cfg, d in zip(GRIDS[name](LOG2_N), lines):
-                r, s = build_relations(cfg, dev)
-                want = _plain_matches(r, s)
-                del r, s
-                ok = (d["inputSum"] == d["outputSum"]
-                      and d["totalMatches"] == want)
+                ok = d["inputSum"] == d["outputSum"]
+                want = None
+                if "totalMatches" in d:
+                    r, s = build_relations(cfg, dev)
+                    want = _plain_matches(r, s)
+                    del r, s
+                    ok = ok and d["totalMatches"] == want
                 if depth > 1 and d.get("resorted") is False:
                     ok = ok and d.get("pipelineDepth") == depth \
                         and "singleRunTimeInMicroseconds" in d
@@ -1565,14 +1603,17 @@ def _harness_grids(dev, card, total) -> None:
             torch.cuda.empty_cache()
             builds = [d["hashBuildTimeInMicroseconds"] for d in lines]
             repaired = sum(d.get("resorted") is True for d in lines)
+            probing = sum("totalMatches" in d for d in lines)
             log = os.path.join(out_dir, f"{name}_log1")
-            print(f"measure: harness {name} 2^{LOG2_N}: {len(lines)} points, "
-                  f"{len(lines) - len(bad)} exact, {repaired} repaired; "
-                  f"hashBuildTimeInMicroseconds {min(builds):.1f}.."
-                  f"{max(builds):.1f}; {name}_log1 written: "
-                  f"{os.path.exists(log)} [{card}]")
+            print(f"{phase}: harness {name} 2^{LOG2_N}: {len(lines)} points, "
+                  f"{len(lines) - len(bad)} exact, {repaired} repaired, "
+                  f"{probing} probing; hashBuildTimeInMicroseconds "
+                  f"{min(builds):.1f}..{max(builds):.1f}; {name}_log1 "
+                  f"written: {os.path.exists(log)} [{card}]")
             _require(not bad and len(lines) == len(list(GRIDS[name](LOG2_N)))
                      and os.path.exists(log), f"harness {name}: {bad[:3]}")
+            out[name] = lines
+    return out
 
 
 def _chunk_sweeps(dev, card) -> None:
@@ -1680,31 +1721,13 @@ def _measurement(dev, card) -> dict:
     _require(0 < bw["gbps"] <= HBM_BYTES_PER_S / 1e9 * 1.05,
              f"testbed copy rate {bw['gbps']} GB/s")
     _counters_runs(dev, card, bw["gbps"], total)
-    _harness_grids(dev, card, total)
+    _harness_grids(dev, card, total, HARNESS, "measure")
     _chunk_sweeps(dev, card)
     _persistence(dev, card)
     _native(dev, card, total)
     torch.cuda.empty_cache()
     print(f"measure: phase 12 took {time.perf_counter() - t0:.1f} s [{card}]")
     return total
-
-
-@contextlib.contextmanager
-def _mapping(path):
-    """$HTM_DEVICE_MAPPING names ``path`` (None: unset) inside the block
-    only; the variable is restored after it."""
-    old = os.environ.get(MAPPING_ENV)
-    try:
-        if path is None:
-            os.environ.pop(MAPPING_ENV, None)
-        else:
-            os.environ[MAPPING_ENV] = path
-        yield
-    finally:
-        if old is None:
-            os.environ.pop(MAPPING_ENV, None)
-        else:
-            os.environ[MAPPING_ENV] = old
 
 
 def _dist_cfgs(n: int) -> dict:
@@ -1751,7 +1774,7 @@ def _distributed(dev, card) -> dict:
         path = os.path.join(tmp, "device-mapping.txt")
         with open(path, "w") as f:
             f.write("8 0 1 2 3 4 5 6 7\n")
-        with _mapping(path):
+        with mapping_env(path):
             # the CLI, flat and hierarchical, on 2^27 shuffled keys
             for shape in ("8", "2,4"):
                 argv = ["--algo", "radix", "--rSize", str(n), "--dataDistr",
@@ -1847,7 +1870,7 @@ def _distributed_zipf(dev, card, total, n) -> None:
           f"[{card}]")
     _require(drop.extra["droppedR"] + drop.extra["droppedS"] > 0
              and drop.totalMatches < exact, "no drops without the repair")
-    with _mapping(None):
+    with mapping_env(None):
         one = distributed_join(r, s, dataclasses.replace(plain,
                                                          mesh_shape=(1,)))
     single = DISPATCH["radix"](r, s, dataclasses.replace(plain,
@@ -1896,6 +1919,93 @@ def _distributed_small(dev, card, total) -> None:
              "padding matched a real key")
     del r, s
     torch.cuda.empty_cache()
+
+
+def _entry_step(dev, card, total) -> None:
+    """entry() on the card against the CPU's and the expected numbers (no
+    kernel runs on it), then ``python -m htm_hashjoin_tpu_torch.entry``'s
+    main: the step and dryrun_multichip(8) under a mapping of its own."""
+    fn, args = entry(dev)
+    res = {}
+    counts = _run_path("entry() 2^16", lambda: res.setdefault(
+        "out", tuple(int(x) for x in fn(*args))), {}, card)
+    for k, v in counts.items():
+        total[k] += v
+    cpu_fn, cpu_args = entry("cpu")
+    cpu = tuple(int(x) for x in cpu_fn(*cpu_args))
+    n = 1 << 16
+    want = (n, n * (n + 1) // 2, 0)
+    print(f"experiments: entry() on the card {res['out']}, on the CPU {cpu}, "
+          f"expected {want} (matches, outputSum, failed inserts) [{card}]")
+    _require(res["out"] == cpu == want and not any(counts.values()),
+             f"entry(): card {res['out']}, CPU {cpu}, expected {want}, "
+             f"launches {counts}")
+    entry_main()
+
+
+def _dial(dev, card, total) -> None:
+    """The adaptive dial experiment at its defaults (2^26, true window 64,
+    declared 2^20, cheap 4, 3 reps): each plan's warm median and launches;
+    whether adaptive beats both fixed plans is printed, not required."""
+    res = {}
+    counts = _run_path(
+        "adaptive_dial_bench 2^26 (window 64, declared 2^20, cheap 4)",
+        lambda: len(res.setdefault("lines", dial.measure(device=dev,
+                                                         echo=False))),
+        {"fused_sort_count": 1, "global_sort_tiles": 1,
+         "banded_count_narrow": 1}, card)
+    for k, v in counts.items():
+        total[k] += v
+    for d in res["lines"]:
+        print(f"experiments: dial {json.dumps(d)}")
+    out = dial.summary(res["lines"])
+    for name, d in out["plans"].items():
+        print(f"experiments: dial {name}: warm median "
+              f"{d['warmMedianUs']:.1f} us, best {d['bestUs']:.1f} us, "
+              f"launches a warm rep {d['launches']} [{card}]")
+    print(f"experiments: dial: adaptive beats both fixed plans: "
+          f"{out['adaptiveBeatsBoth']} [{card}]")
+    torch.cuda.empty_cache()
+
+
+def _crossover(dev, card, total) -> None:
+    """The radix crossover at its defaults (2^20..2^27, 3 reps, 14 bits):
+    every output checked as a multiset and for its order by the module;
+    the multipass/sort ratio per size."""
+    res = {}
+    counts = _run_path(
+        f"radix_crossover 2^{','.join(map(str, rx.SIZES))}",
+        lambda: len(res.setdefault("lines", rx.crossover(
+            rx.SIZES, rx.REPS, rx.RADIX_BITS, dev, echo=False))),
+        {"global_sort_tiles": 1, "sort_tiles": 1, "scatter_tiles": 1}, card)
+    for k, v in counts.items():
+        total[k] += v
+    for d in res["lines"]:
+        print(f"experiments: crossover {json.dumps(d)} [{card}]")
+    print("experiments: crossover multipass/sort: " + ", ".join(
+        f"2^{lg} {r:.3f}" for lg, r in rx.ratios(res["lines"]).items())
+        + f" [{card}]")
+    torch.cuda.empty_cache()
+
+
+def _experiments(dev, card) -> dict:
+    """Phase 14: entry(), the two planner experiments, the eight grids no
+    other phase runs, and the source paper's motivation comparison."""
+    t0 = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+    _entry_step(dev, card, total)
+    _dial(dev, card, total)
+    _crossover(dev, card, total)
+    lines = _harness_grids(dev, card, total, GRIDS_BUILD, "experiments")
+    print("experiments: the motivation comparison from this phase's one rep "
+          "(a grid's first point carries one-time costs; harness.report "
+          "gives the medians over the reps of `harness all`)")
+    for line in report.motivation_lines(report.motivation_ratios(
+            [lines["motivation"]])):
+        print(f"experiments: {line} [{card}]")
+    print(f"experiments: phase 14 took {time.perf_counter() - t0:.1f} s "
+          f"[{card}]")
+    return total
 
 
 def main() -> int:
@@ -2062,12 +2172,13 @@ def main() -> int:
     # 6-7. every other path at 2^27, then K2-K5 at their paths' shapes
     counts = _paths(dev, card, errs, times)
     counts["fused_sort_count"] += main_counts["fused_sort_count"]
-    # 8-13. K6 and the multipass radix join, the CLI's paths, the hash
-    # joins, K7 and the Wisconsin multijoin, the measurement layer, then
-    # the distributed join
+    # 8-14. K6 and the multipass radix join, the CLI's paths, the hash
+    # joins, K7 and the Wisconsin multijoin, the measurement layer, the
+    # distributed join, then entry() and the experiments
     for more in (_radix(dev, card, errs, times), _cli_paths(dev, card),
                  _hash_joins(dev, card), _wisconsin(dev, card, errs, times),
-                 _measurement(dev, card), _distributed(dev, card)):
+                 _measurement(dev, card), _distributed(dev, card),
+                 _experiments(dev, card)):
         for k, v in more.items():
             counts[k] += v
     for name in KERNELS:

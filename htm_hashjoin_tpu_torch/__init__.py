@@ -7,8 +7,10 @@ pipeline and every build+probe plan, with its abort -> retry, repair and
 replan paths), the planner and its HTM_ADAPT dial, all eight joins of
 the CLI (htm, radix, adaptive with HTM_SWITCH, nocc, atomic, npo, npo_st,
 sortmerge) with the hash-table scatter builds, the multipass radix
-partition, the generators, the CLI (``python -m htm_hashjoin_tpu_torch.cli``) and the
-Wisconsin multijoin, through hand-written CUDA kernels (``csrc/*.cu``: K1
+partition, the generators, the CLI (``python -m htm_hashjoin_tpu_torch.cli``),
+the Wisconsin multijoin, the measurement layer, the distributed join, the
+single-device entry step (``entry``) and the planner's experiments
+(``experiments``), through hand-written CUDA kernels (``csrc/*.cu``: K1
 fused sort + count, K2 tile sort, K4 general count, K5 narrow count, K6
 radix scatter, K7a the TPU's key-value phase A, and one LSD radix sort for
 K3, the global sort, and K7, the key-value global sort) on CUDA tensors

@@ -14,14 +14,9 @@ from __future__ import annotations
 import torch
 
 from ..utils.device import entry_device
+from ..utils.validate import check
 from .dist_join import build_dist_join_fn
 from .mesh import make_mesh, shard_relation
-
-
-def _check(ok: bool, what: str) -> None:
-    """A check that ``python -O`` keeps."""
-    if not ok:
-        raise AssertionError(what)
 
 
 def dryrun_multichip(n_devices: int, device=None) -> None:
@@ -39,8 +34,8 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     res = build_dist_join_fn(mesh, n, n, skew_handling=True)(
         shard_relation(rk, mesh), shard_relation(sk, mesh))
     matches = int(res.matches)
-    _check(matches == n, f"dryrun expected {n} matches, got {matches}")
-    _check(int(res.input_sum_r) == int(res.output_sum_r),
+    check(matches == n, f"dryrun expected {n} matches, got {matches}")
+    check(int(res.input_sum_r) == int(res.output_sum_r),
            "conservation violated")
 
     # forced-overflow residual repair: an undersized capacity factor makes
@@ -49,10 +44,10 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     res_r = build_dist_join_fn(mesh, n, n, capacity_factor=0.3,
                                residual_repair=True)(
         shard_relation(rk, mesh), shard_relation(sk, mesh))
-    _check(int(res_r.matches) == n,
+    check(int(res_r.matches) == n,
            f"repair dryrun expected {n} matches, got {int(res_r.matches)}")
-    _check(int(res_r.repaired_r) > 0, "overflow never fired — not exercised")
-    _check(int(res_r.dropped_r) == 0 and int(res_r.dropped_s) == 0,
+    check(int(res_r.repaired_r) > 0, "overflow never fired — not exercised")
+    check(int(res_r.dropped_r) == 0 and int(res_r.dropped_s) == 0,
            "the repair dryrun dropped tuples")
 
     if n_devices % 2 == 0 and n_devices >= 4:
@@ -60,13 +55,13 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
         mesh2 = make_mesh((2, n_devices // 2), ("host", "chip"), device=dev)
         rk2, sk2 = shard_relation(rk, mesh2), shard_relation(sk, mesh2)
         res2 = build_dist_join_fn(mesh2, n, n, skew_handling=True)(rk2, sk2)
-        _check(int(res2.matches) == n, f"hierarchical dryrun expected {n} "
+        check(int(res2.matches) == n, f"hierarchical dryrun expected {n} "
                f"matches, got {int(res2.matches)}")
         # hierarchical + forced overflow: both exchange stages spill into
         # the repair round
         res2r = build_dist_join_fn(mesh2, n, n, capacity_factor=0.3,
                                    residual_repair=True)(rk2, sk2)
-        _check(int(res2r.matches) == n,
+        check(int(res2r.matches) == n,
                f"hier repair dryrun expected {n}, got {int(res2r.matches)}")
-        _check(int(res2r.dropped_r) == 0 and int(res2r.dropped_s) == 0,
+        check(int(res2r.dropped_r) == 0 and int(res2r.dropped_s) == 0,
                "the hierarchical repair dryrun dropped tuples")

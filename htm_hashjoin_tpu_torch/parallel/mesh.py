@@ -14,9 +14,10 @@ share a device run one after another.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
-from typing import List, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +47,24 @@ def load_device_mapping(path: Optional[str] = None) -> Optional[List[int]]:
         raise ValueError(f"malformed device mapping {path!r}: "
                          f"expected count then that many ids")
     return nums[1:1 + nums[0]]
+
+
+@contextlib.contextmanager
+def mapping_env(path: Optional[str]) -> Iterator[None]:
+    """$HTM_DEVICE_MAPPING names ``path`` (None: unset) inside the block
+    only; the variable is restored after it."""
+    old = os.environ.get(MAPPING_ENV)
+    try:
+        if path is None:
+            os.environ.pop(MAPPING_ENV, None)
+        else:
+            os.environ[MAPPING_ENV] = path
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(MAPPING_ENV, None)
+        else:
+            os.environ[MAPPING_ENV] = old
 
 
 def _devices(device: torch.device) -> List[torch.device]:

@@ -41,6 +41,13 @@ def reference_match_count(r_keys, s_keys) -> int:
                       s_counts[hit].astype(np.int64)))
 
 
+def check(ok: bool, what: str) -> None:
+    """Raise AssertionError(what) unless ``ok``: an assert that ``python
+    -O`` keeps."""
+    if not ok:
+        raise AssertionError(what)
+
+
 def assert_conserved(input_sum: int, output_sum: int, context: str = "") -> None:
     if input_sum != output_sum:
         raise AssertionError(

@@ -25,8 +25,12 @@ Tables live on one device: ``run_multijoin(conf, device=...)`` runs on the
 CUDA device by default, where the partition split at reference scale goes
 through the key-value global sort K7 (``ops/global_sort_kv.py``), and on
 the CPU with the plain versions when given ``device="cpu"``.  Importing
-this package imports torch only.
+this package imports torch only.  The reference's six shipped confs
+(no_partition, independent, parallel, radix1, steal, flatmem) ship in
+``CONF_DIR``, this package's own ``conf/``.
 """
+
+import os
 
 from .schema import ColumnType, Schema
 from .table import Table, WriteTable
@@ -43,7 +47,11 @@ from .datagen import build_rows, probe_rows
 from .datagen import generate as generate_tbl_files
 from .driver import run_multijoin
 
+#: the shipped ``.conf`` files, found from this package's own path
+CONF_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "conf")
+
 __all__ = [
+    "CONF_DIR",
     "generate_conf_grid", "render_conf",
     "build_rows", "probe_rows", "generate_tbl_files",
     "ColumnType", "Schema", "Table", "WriteTable",

@@ -853,3 +853,64 @@ def test_distributed_join_on_the_card_equals_the_cpu(dev, tmp_path,
     assert got["droppedR"] == got["droppedS"] == 0
     if "repair" in case:
         assert got["repairedR"] + got["repairedS"] > 0
+
+
+def test_entry_on_the_card_equals_the_cpu(dev):
+    """The single-device entry step (2^16 keys, no kernel on it) gives the
+    CPU's three numbers on the card, and the expected ones."""
+    from htm_hashjoin_tpu_torch.entry import entry
+    fn, args = entry(dev)
+    assert all(a.is_cuda for a in args)
+    got = tuple(int(x) for x in fn(*args))
+    cpu_fn, cpu_args = entry("cpu")
+    n = 1 << 16
+    assert got == tuple(int(x) for x in cpu_fn(*cpu_args)) == (
+        n, n * (n + 1) // 2, 0)
+
+
+def test_dial_on_the_card(dev):
+    """The adaptive dial experiment at 2^20 (true window 64, declared 2^20,
+    cheap 4): every rep exact (the module raises otherwise); the declared
+    plan sorts first (K3 + K5), the cheap one retries (K1 twice), the
+    adaptive one runs K1 once; on the same relations each plan's line
+    equals the CPU's but for the times and the launches."""
+    from htm_hashjoin_tpu_torch.experiments import adaptive_dial_bench as dial
+    cfg0 = JoinConfig(algo=Algo.HTM, r_size=1 << 20,
+                      data_distr=Distribution.LOCAL_SHUFFLE, shuffle_range=64)
+    r, s = build_relations(cfg0, dev)
+    cfgs = dial.plan_configs(cfg0, 1 << 20, 4)
+    lines = dial.run_plans(r, s, cfgs, reps=2, echo=False)
+    by = {(d["plan"], d["rep"]): d for d in lines}
+    for rep in range(2):
+        declared = by[("fixed-declared", rep)]["launches"]
+        assert declared.get("global_sort_tiles", 0) >= 1
+        assert declared.get("banded_count_narrow", 0) >= 1
+        assert by[("fixed-cheap", rep)]["launches"].get(
+            "fused_sort_count") == 2
+        assert by[("fixed-cheap", rep)]["resorted"] is True
+        assert by[("adaptive", rep)]["launches"].get("fused_sort_count") == 1
+    cpu = dial.run_plans(Relation(r.keys.cpu()),
+                         Relation(s.keys.cpu(), assume_sorted=True), cfgs,
+                         reps=1, echo=False)
+
+    def untimed(d):
+        return {k: v for k, v in d.items()
+                if "Time" not in k and k not in ("timeUs", "launches")}
+    assert [untimed(d) for d in cpu] == [untimed(by[(d["plan"], 0)])
+                                         for d in cpu]
+
+
+def test_crossover_on_the_card(dev):
+    """The radix crossover at 2^20: both engines' outputs hold the input
+    as a multiset and in their order (the module raises otherwise), the
+    sort engine through K3, the multipass one through K2 and K6."""
+    from htm_hashjoin_tpu_torch.experiments import (kernel_launches,
+                                                    launches_since)
+    from htm_hashjoin_tpu_torch.experiments import radix_crossover as rx
+    before = kernel_launches()
+    lines = rx.crossover([20], reps=1, radix_bits=14, device=dev, echo=False)
+    assert [d["engine"] for d in lines] == list(rx.ENGINES)
+    launched = launches_since(before)
+    assert launched.get("global_sort_tiles") == 1
+    assert launched.get("scatter_tiles") == 2
+    assert launched.get("sort_tiles") == 3

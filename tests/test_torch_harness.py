@@ -181,3 +181,61 @@ def test_entry_points_need_cuda_without_a_device(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         harness.run_config(next(iter(GRIDS["track"](4))))
     runner.clear_cache()
+
+
+def test_report_conserved_allows_losses_to_nocc_only():
+    from htm_hashjoin_tpu_torch.harness import report
+    line = {"algo": "atomic", "inputSum": 10, "outputSum": 10}
+    assert report.conserved(line)
+    assert not report.conserved({**line, "outputSum": 9})
+    assert report.conserved({**line, "algo": "nocc", "outputSum": 9})
+    assert not report.conserved({**line, "algo": "nocc", "outputSum": 11})
+    s = report.grid_summary([
+        {**line, report.BUILD: 5.0}, {**line, "outputSum": 9,
+                                      report.BUILD: 2.0}])
+    assert s == {"points": 2, "conserved": 1, "buildMinUs": 2.0,
+                 "buildMedianUs": 3.5, "buildMaxUs": 5.0}
+
+
+def test_report_pairs_the_motivation_grid_by_window(tmp_path):
+    """PRO's lines are the grid's first scale + 1, the adaptive HTM
+    build's its last scale + 1; each window's numbers are the medians over
+    the reps."""
+    from htm_hashjoin_tpu_torch.harness import report
+    scale = 6
+    harness.run_grid("motivation", scale=scale, reps=3, echo=False,
+                     out_dir=str(tmp_path), device=CPU)
+    reps = report.read_logs(str(tmp_path))["motivation"]
+    assert len(reps) == 3 and all(len(r) == 4 * (scale + 1) for r in reps)
+    ratios = report.motivation_ratios(reps)
+    assert [r["window"] for r in ratios] == [1 << i for i in range(scale + 1)]
+    for i, r in enumerate(ratios):
+        pro = sorted(rep[i][report.BUILD] for rep in reps)[1]
+        htm = sorted(rep[3 * (scale + 1) + i][report.BUILD]
+                     for rep in reps)[1]
+        assert [rep[i]["algo"] for rep in reps] == ["radix"] * 3
+        assert [rep[3 * (scale + 1) + i]["algo"] for rep in reps] == \
+            ["htm"] * 3
+        assert (r["proUs"], r["htmUs"], r["ratio"]) == (pro, htm, pro / htm)
+    lines = report.motivation_lines(ratios)
+    assert len(lines) == scale + 2
+    assert lines[-1].startswith("motivation: HTM beats PRO by 2x or more at")
+
+
+def test_report_main_summarises_every_grid(tmp_path, capsys):
+    from htm_hashjoin_tpu_torch.harness import report
+    with pytest.raises(FileNotFoundError):
+        report.main([str(tmp_path)])
+    for name in ("SizeToAbortsAndTimeSorted", "AtomicsVsHTMVsNoCC"):
+        harness.run_grid(name, scale=6, reps=2, echo=False,
+                         out_dir=str(tmp_path), device=CPU)
+    (tmp_path / "AtomicsVsHTMVsNoCC_log2.bak").write_text("not a log\n")
+    assert report.main([str(tmp_path)]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out == [
+        next(x for x in out if x.startswith("SizeToAbortsAndTimeSorted: 2 "
+                                            "reps, 13 points a rep, 26 of "
+                                            "26 lines conserve")),
+        next(x for x in out if x.startswith("AtomicsVsHTMVsNoCC: 2 reps, 6 "
+                                            "points a rep, 12 of 12 lines "
+                                            "conserve"))]

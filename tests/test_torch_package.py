@@ -47,6 +47,10 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
         "from htm_hashjoin_tpu_torch.ops import _build\n"
         "from htm_hashjoin_tpu_torch.parallel import (mesh, collectives,"
         " dist_join, scaling, dryrun)\n"
+        "import htm_hashjoin_tpu_torch.entry\n"
+        "import htm_hashjoin_tpu_torch.harness.report\n"
+        "from htm_hashjoin_tpu_torch.experiments import (adaptive_dial_bench,"
+        " radix_crossover)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('htm_hashjoin_tpu.') or m == 'htm_hashjoin_tpu']\n"
         "print(bad, _build.build.cache_info().currsize,"
