@@ -4,7 +4,9 @@
 Phases, one line each:
   1. device   - the card's name and power limit (nvidia-smi);
   2. build    - nvcc builds the kernels from htm_hashjoin_tpu_torch/csrc/
-                (one nvcc process per source, all started together);
+                (one nvcc process per source, all started together); each
+                kernel's registers and spill bytes as ptxas reports them
+                (K7a's kernels must not spill);
   3. kernel   - K1 (fused_sort_count) against its plain torch version on
                 the card, on cases of a few tiles, exactly (integer outputs;
                 counts only on tiles with zero inversions); K1 and K5 on the
@@ -84,8 +86,11 @@ Phases, one line each:
                 (stable sort + gather) on few-tile cases (one tile, two, 2^3
                 padded, 16 copies a key, rotation-packed keys with shard
                 bits, negatives, two values), exactly; K7a (the TPU's phase
-                A, on no path now) alone against its plain version by the
-                multiset rule within each block; the six shipped multijoin
+                A, on no path now) alone against its plain version, bit for
+                bit, at every kernel tile in both directions (all keys
+                equal, sorted, reversed, 16 copies a key, MAXI32 padding in
+                the last block, INT32_MIN and negatives; one tile and 64);
+                the six shipped multijoin
                 confs at the reference's 2^24 PK build x 2^28 FK probe
                 through run_multijoin, each run twice and the second reported
                 (JSON line, K7 launches, peak device memory), its output held
@@ -95,7 +100,8 @@ Phases, one line each:
                 gather) and K7a against their plain versions at the probe
                 split's shape (2^28 rotation-packed keys plus payload),
                 timed, and K7a's library call (a per-block torch.sort and a
-                gather of the values);
+                gather of the values); K7a also in its smaller blocks there
+                (exact; times printed, not reported);
  12. measure    - the measurement layer: the testbed's 2^27 copy rate (at
                 most 3.35 TB/s + 5 %); cli.main with --counters
                 --throughput on the headline join (--algo htm) and on the
@@ -1303,25 +1309,67 @@ def _pairs(a, b):
     return torch.sort((a.long() << 32) | (b.long() & 0xFFFFFFFF)).values
 
 
-def _kv_err(got, want, block=None) -> int:
-    """0 when two key-value sorts agree by the multiset rule (keys equal,
-    values equal as a multiset within each key; within each ``block``-pair
-    block when given), else the largest key difference (at least 1)."""
-    (gk, gv), (wk, wv) = got, want
-    err = _err(gk, wk)
-    if block is None:
-        same = torch.equal(_pairs(gk, gv), _pairs(wk, wv))
+K7A_KINDS = ("all equal", "sorted", "reversed", "16 copies a key",
+             "MAXI32 padding in the last block", "INT32_MIN and negatives")
+
+
+def _k7a_case(kind, tile, n_tiles, gen, dev):
+    """(keys, values) of n_tiles tiles (the kinds of
+    tests/test_torch_cuda.py); the values are distinct, so a tie out of
+    input order shows."""
+    n = tile * n_tiles
+    wide = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    if kind == "all equal":
+        keys = torch.full((n,), -7, dtype=torch.int32, device=dev)
+    elif kind == "sorted":
+        keys = torch.sort(wide >> 20).values
+    elif kind == "reversed":
+        keys = torch.sort(wide >> 20, descending=True).values
+    elif kind in ("16 copies a key", "MAXI32 padding in the last block"):
+        keys = torch.randint(0, max(1, n // 16), (n,), generator=gen,
+                             device=dev, dtype=torch.int32)
+        if kind != "16 copies a key":
+            keys[n - tile // 2 - 5:] = MAXI32
     else:
-        comp = [((k.long() << 32) | (v.long() & 0xFFFFFFFF)).view(-1, block)
-                for k, v in ((gk, gv), (wk, wv))]
-        same = torch.equal(comp[0].sort(1).values, comp[1].sort(1).values)
-    return err or int(not same)
+        keys = wide.clone()
+        keys[::97] = -2**31
+        keys[1::89] = MAXI32
+        keys[2::13] = -1
+    vals = (torch.randperm(n, generator=gen, device=dev) - n // 2).int()
+    return keys, vals
+
+
+def _check_k7a(dev, errs) -> None:
+    """K7a alone against its plain version (stable sort + gather), bit for
+    bit: both sort stably, the kernel by (key, row) composites; at every
+    kernel tile, in both directions, on each of K7A_KINDS in one tile and
+    in 64."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    for tile in skv.KERNEL_TILES:
+        for kind in K7A_KINDS:
+            for n_tiles in (1, 64):
+                k, v = _k7a_case(kind, tile, n_tiles, gen, dev)
+                for alternate in (False, True):
+                    got = skv.sort_kv_tiles(k, v, tile=tile,
+                                            alternate=alternate)
+                    torch.cuda.synchronize()
+                    want = skv.sort_kv_tiles_ref(k, v, tile=tile,
+                                                 alternate=alternate)
+                    err = max(_err(got[0], want[0]), _err(got[1], want[1]))
+                    errs["sort_kv_tiles"] = max(errs["sort_kv_tiles"], err)
+                    _require(not err, f"K7a differs from its plain version "
+                             f"on {kind}, {n_tiles} tiles of {tile}, "
+                             f"alternate={alternate}")
+    print(f"kernel: K7a alone at tiles {skv.KERNEL_TILES}, both directions, "
+          f"on {', '.join(K7A_KINDS)}, 1 and 64 tiles: equal to its plain "
+          f"version bit for bit")
 
 
 def _check_kv(dev, errs) -> None:
     """K7 against its plain version (stable sort + gather) on cases of a few
-    tiles of the split's tile, exactly; and K7a alone (both directions)
-    against its plain version by the multiset rule within each tile."""
+    tiles of the split's tile, exactly; then K7a alone (_check_k7a)."""
     tile = wpart.KV_TILE
     gen = torch.Generator(device=dev)
     gen.manual_seed(17)
@@ -1365,15 +1413,7 @@ def _check_kv(dev, errs) -> None:
               f"launch, max_abs_err={err}")
         _require(not err and launched == (0, 1),
                  f"K7 differs from its plain version on {case}")
-    k, v = dup[:8 * tile], vals(8 * tile)
-    for alternate in (False, True):
-        got = skv.sort_kv_tiles(k, v, tile=tile, alternate=alternate)
-        want = skv.sort_kv_tiles_ref(k, v, tile=tile, alternate=alternate)
-        err = _kv_err(got, want, block=tile)
-        errs["sort_kv_tiles"] = max(errs["sort_kv_tiles"], err)
-        print(f"kernel: K7a alone, 8 tiles, alternate={alternate}: "
-              f"max_abs_err={err}")
-        _require(not err, "K7a differs from its plain version")
+    _check_k7a(dev, errs)
 
 
 def _expected_pairs(conf, dev, cache) -> torch.Tensor:
@@ -1463,7 +1503,7 @@ def _wisconsin(dev, card, errs, times) -> dict:
     before = skv.LAUNCHES
     got = skv.sort_kv_tiles(t, pay, tile=block, alternate=True)
     want = skv.sort_kv_tiles_ref(t, pay, tile=block, alternate=True)
-    err = _kv_err(got, want, block=block)
+    err = max(_err(got[0], want[0]), _err(got[1], want[1]))
     errs["sort_kv_tiles"] = max(errs["sort_kv_tiles"], err)
     _require(not err, f"sort_kv_tiles differs from its plain version at {what}")
     bound = _bound_ms((t, pay), got)
@@ -1499,6 +1539,18 @@ def _wisconsin(dev, card, errs, times) -> dict:
           f"torch.sort of even blocks up, odd blocks down, + gather) "
           f"{library_ms:.4f} ms, bound {bound:.4f} ms, "
           f"max_abs_err={err}, {skv.LAUNCHES - before} launches [{card}]")
+    for tile in skv.KERNEL_TILES[:-1]:   # the smaller blocks, printed only
+        got = skv.sort_kv_tiles(t, pay, tile=tile, alternate=True)
+        want = skv.sort_kv_tiles_ref(t, pay, tile=tile, alternate=True)
+        err = max(_err(got[0], want[0]), _err(got[1], want[1]))
+        del got, want
+        _require(not err, f"sort_kv_tiles differs from its plain version at "
+                 f"{what}, {tile}-pair blocks")
+        tile_ms = _events_ms(lambda tile=tile: skv.sort_kv_tiles(
+            t, pay, tile=tile, alternate=True), 3)
+        print(f"kernel times: sort_kv_tiles at {what}, {tile}-pair blocks: "
+              f"{tile_ms:.4f} ms (printed, not reported), max_abs_err={err} "
+              f"[{card}]")
     del t, pay
     torch.cuda.empty_cache()
     return total
@@ -2022,9 +2074,14 @@ def main() -> int:
     # 2. build
     path, seconds, report = _build.build()
     _build.load_library()
-    usage = "; ".join(line.split(":", 1)[1].strip()
-                      for line in report.splitlines() if "Used" in line)
-    print(f"build: nvcc {seconds:.2f} s -> {path.name}; {usage}")
+    usage = _build.kernel_usage(report)
+    print(f"build: nvcc {seconds:.2f} s -> {path.name}; " + "; ".join(
+        f"{name}: {regs} registers, spill stores {st} bytes, loads {ld} "
+        f"bytes" for name, (regs, st, ld) in usage.items()))
+    k7a = [u for name, u in usage.items() if name.startswith("sort_kv_kernel")]
+    _require(len(k7a) == len(skv.KERNEL_TILES) and
+             not any(st or ld for _, st, ld in k7a),
+             "ptxas reports spills for K7a (or no K7a kernel)")
 
     # 3. kernel against its plain version, a few tiles per case
     n = 4 * TILE

@@ -1,12 +1,12 @@
 // Device code shared by the banded join's kernels (K1 fused sort + count,
 // K2 tile sort, K4 general count, K5 narrow count) and K7a, the key-value
-// block sort: K7a's shared-memory key-value network, K2's register-resident
-// tile sort (K1 runs it too), 16-byte tile copies, block reductions, the
-// per-tile stats row, the band search of the counts (K1, K4 and K5) and
-// the narrow-band count with its exactness certificate (K1 and K5).  One
-// definition each, so the kernels cannot drift apart on them (the JAX
-// package's make_tile_stats_row and make_contributions play the same role
-// for its Pallas kernels).
+// block sort: the register-resident tile sort (K2's; K1 runs it on keys,
+// K7a on 64-bit (key, row) composites), 16-byte tile copies, block
+// reductions, the per-tile stats row, the band search of the counts (K1,
+// K4 and K5) and the narrow-band count with its exactness certificate (K1
+// and K5).  One definition each, so the kernels cannot drift apart on them
+// (the JAX package's make_tile_stats_row and make_contributions play the
+// same role for its Pallas kernels).
 //
 // Everything sits in an unnamed namespace: each kernel source is its own
 // translation unit and gets its own copy.  Block-wide helpers synchronise
@@ -24,73 +24,10 @@ constexpr int kOv = kLanes * kOvRows;
 constexpr int kMaxI32 = 0x7fffffff;
 constexpr int kMinI32 = -kMaxI32 - 1;
 constexpr int kPackLimit = 1 << 29;
-constexpr int kThreads = 512;      // K7a's block size below 16K-pair blocks
 constexpr int kMaxThreads = 1024;  // the largest block of any kernel here
 constexpr int kMaxWarps = kMaxThreads / 32;
 
 enum Method { kBitonic = 0, kBlocks = 1, kOddEven = 2, kBitonicAlt = 3 };
-
-// K7a's network, in shared memory: the flip form of the bitonic network
-// (the first stage of level k pairs each key with its mirror in the
-// k-block, so every exchange is ascending).  Keys are compared, and a
-// key's value moves with it.  Ties are left in place, so equal keys keep
-// whatever value order the network gives them (a bitonic network is not
-// stable, on the TPU either).
-__device__ __forceinline__ void compare_exchange_kv(int* k, int* v, int i,
-                                                    int j) {
-    const int a = k[i];
-    const int b = k[j];
-    if (b < a) {
-        k[i] = b;
-        k[j] = a;
-        const int t = v[i];
-        v[i] = v[j];
-        v[j] = t;
-    }
-}
-
-__device__ void merge_stages_kv(int* k, int* v, int n, int h) {
-    const int pairs = n >> 1;
-    for (int d = h; d >= 1; d >>= 1) {
-        for (int p = threadIdx.x; p < pairs; p += blockDim.x) {
-            const int i = ((p & ~(d - 1)) << 1) | (p & (d - 1));
-            compare_exchange_kv(k, v, i, i + d);
-        }
-        __syncthreads();
-    }
-}
-
-// Sorts k[0, n) ascending, v riding (n a power of two).  Ends
-// synchronised.
-__device__ void sort_kv(int* k, int* v, int n) {
-    const int pairs = n >> 1;
-    for (int kk = 2; kk <= n; kk <<= 1) {
-        const int h = kk >> 1;
-        for (int p = threadIdx.x; p < pairs; p += blockDim.x) {
-            const int r = p & (h - 1);
-            const int i = ((p & ~(h - 1)) << 1) | r;
-            compare_exchange_kv(k, v, i, (i | (kk - 1)) - r);
-        }
-        __syncthreads();
-        merge_stages_kv(k, v, n, h >> 1);
-    }
-}
-
-// dst[0, n) = src[0, n) with 16-byte accesses (both 16-byte aligned, n a
-// multiple of 4).  No barrier.
-__device__ __forceinline__ void copy_keys(int* __restrict__ dst,
-                                          const int* __restrict__ src, int n) {
-    const int4* s4 = reinterpret_cast<const int4*>(src);
-    int4* d4 = reinterpret_cast<int4*>(dst);
-    for (int i = threadIdx.x; i < n / 4; i += blockDim.x) d4[i] = s4[i];
-}
-
-// v[i] = ~v[i]: an order-reversing bijection of int32, so an ascending
-// network over ~v sorts (or merges) v descending.  Ends synchronised.
-__device__ void complement_keys(int* v, int n) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) v[i] = ~v[i];
-    __syncthreads();
-}
 
 __device__ __forceinline__ int warp_min(int x) {
     for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -147,9 +84,9 @@ __device__ long long block_sum(long long x) {
 }
 
 // ---------------------------------------------------------------------------
-// The register-resident tile sort (K1 and K2).
+// The register-resident tile sort (K1, K2 and K7a).
 //
-// A block of P threads holds a T = E * P key tile in registers, E keys a
+// A block of P threads holds a tile of E * P keys in registers, E keys a
 // thread in the blocked layout: key i of the tile is x[i % E] of thread
 // i / E.  Index bits below log2(E) are a thread's registers, the next five
 // its lane, the rest its warp.  A compare-exchange stage pairs key i with
@@ -157,43 +94,55 @@ __device__ long long block_sum(long long x) {
 // HB falls decides where the stage runs: in registers, across lanes with
 // __shfl_xor_sync, or, for warp bits only, through shared memory (each
 // thread stores its keys, one barrier, each reads its partners).  Shared
-// rows are padded by one word in 32, so the blocked stores and the
-// partners' loads of a warp hit 32 banks.  Every stage index is a template
-// argument, so every register index is known at compile time and no key
-// leaves the registers for local memory (stage_at picks the stage body at
-// run time).  The exact sorters stop the network at the warp's 32E keys and
-// merge the warps' runs along the merge path (merge_levels).
+// rows are padded by one element in 128 bytes (one word in 32 for int
+// keys, one in 16 for K7a's 64-bit composites, whose accesses a half-warp
+// at a time make one 128-byte wavefront), so the blocked stores and the
+// partners' loads of a warp hit every bank once.  Every stage index is a
+// template argument, so every register index is known at compile time and
+// no key leaves the registers for local memory (stage_at picks the stage
+// body at run time).  The exact sorters stop the network at the warp's 32E
+// keys and merge the warps' runs along the merge path (merge_levels).  The
+// element type T is int for K1 and K2 and long long for K7a; stage_at,
+// bitonic_levels, rotate_keys and odd_even_regs serve K2's inexact
+// sorters and take int only.
 
 __host__ __device__ constexpr int ilog2(int x) {
     return x <= 1 ? 0 : 1 + ilog2(x / 2);
 }
 
-__device__ __forceinline__ int padded(int i) { return i + (i >> 5); }
+// Where element i of a tile of T elements sits in shared memory, one
+// element of padding after every 128 bytes.
+template <typename T = int>
+__device__ __forceinline__ int padded(int i) {
+    constexpr int kShift = ilog2(128 / static_cast<int>(sizeof(T)));
+    return i + (i >> kShift);
+}
 
-template <int E, int P>
+template <int E, int P, typename T = int>
 struct RegTile {
     static constexpr int kT = E * P;
     static constexpr int kLogE = ilog2(E);
     static constexpr int kLogT = ilog2(kT);
     static constexpr int kWarps = P / 32;
-    static constexpr int kPadded = kT + kT / 32;
+    static constexpr int kPadded = kT + kT / (128 / static_cast<int>(sizeof(T)));
+    static constexpr int kBufBytes = kPadded * static_cast<int>(sizeof(T));
     // two buffers, used in turn, let a stage's stores follow the previous
     // stage's loads without a second barrier; one where two do not fit
-    static constexpr bool kTwoBufs = 2 * kPadded * 4 <= 160 * 1024;
-    static constexpr int kSmemBytes = (kTwoBufs ? 2 : 1) * kPadded * 4;
+    static constexpr bool kTwoBufs = 2 * kBufBytes <= 160 * 1024;
+    static constexpr int kSmemBytes = (kTwoBufs ? 2 : 1) * kBufBytes;
     static_assert(E >= 4 && (E & (E - 1)) == 0, "E: a power of two >= 4");
     static_assert(P % 32 == 0 && P <= kMaxThreads, "P: whole warps");
 };
 
 // The shared buffer of the next exchange round (stores, barrier, loads).
-template <int E, int P>
+template <int E, int P, typename T = int>
 struct ShuffleBuf {
-    int* base;
+    T* base;
     int round;
-    __device__ __forceinline__ int* next() {
-        int* buf = base;
-        if (RegTile<E, P>::kTwoBufs) {
-            buf += (round & 1) * RegTile<E, P>::kPadded;
+    __device__ __forceinline__ T* next() {
+        T* buf = base;
+        if (RegTile<E, P, T>::kTwoBufs) {
+            buf += (round & 1) * RegTile<E, P, T>::kPadded;
         } else if (round) {
             __syncthreads();   // the previous round's loads are done
         }
@@ -205,24 +154,25 @@ struct ShuffleBuf {
 // min(x, y) if keep_min, else max(x, y), as one compare and one select
 // (a direction known only at run time would otherwise cost a min, a max
 // and a select).
-__device__ __forceinline__ int keep_or_take(int x, int y, bool keep_min) {
+template <typename T>
+__device__ __forceinline__ T keep_or_take(T x, T y, bool keep_min) {
     return (y < x) == keep_min ? y : x;
 }
 
 // One stage over the blocked tile x: key i meets key i ^ M, and the one
 // whose bit HB is clear keeps the smaller key.  Keys at indices >= limit
 // take no part (limit is a multiple of 2 * HB, so no pair is split).
-template <int E, int P, int M, int HB>
-__device__ __forceinline__ void reg_stage(int (&x)[E], ShuffleBuf<E, P>& sh,
+template <int E, int P, int M, int HB, typename T>
+__device__ __forceinline__ void reg_stage(T (&x)[E], ShuffleBuf<E, P, T>& sh,
                                           int limit) {
-    constexpr int kLogE = RegTile<E, P>::kLogE;
+    constexpr int kLogE = RegTile<E, P, T>::kLogE;
     const int first = threadIdx.x * E;   // the index of x[0]
     if constexpr (HB < E) {
 #pragma unroll
         for (int j = 0; j < E; ++j) {
             if ((j & HB) == 0 && first + j < limit) {
-                const int a = x[j];
-                const int b = x[j ^ M];
+                const T a = x[j];
+                const T b = x[j ^ M];
                 x[j] = min(a, b);
                 x[j ^ M] = max(a, b);
             }
@@ -237,34 +187,35 @@ __device__ __forceinline__ void reg_stage(int (&x)[E], ShuffleBuf<E, P>& sh,
             const int pj = j ^ kRegMask;
             if (pj < j) continue;
             // ya: the partner of key j; yb: the partner of key pj
-            const int ya = __shfl_xor_sync(0xffffffffu, x[pj], kLaneMask);
-            const int yb = pj == j ? ya
-                                   : __shfl_xor_sync(0xffffffffu, x[j], kLaneMask);
+            const T ya = __shfl_xor_sync(0xffffffffu, x[pj], kLaneMask);
+            const T yb = pj == j ? ya
+                                 : __shfl_xor_sync(0xffffffffu, x[j], kLaneMask);
             if (live) {
                 x[j] = keep_or_take(x[j], ya, keep_min);
                 if (pj != j) x[pj] = keep_or_take(x[pj], yb, keep_min);
             }
         }
     } else {
-        int* buf = sh.next();
+        T* buf = sh.next();
 #pragma unroll
-        for (int j = 0; j < E; ++j) buf[padded(first + j)] = x[j];
+        for (int j = 0; j < E; ++j) buf[padded<T>(first + j)] = x[j];
         __syncthreads();
         const bool keep_min = (first & HB) == 0;
         if (first < limit) {
 #pragma unroll
             for (int j = 0; j < E; ++j) {
-                x[j] = keep_or_take(x[j], buf[padded((first + j) ^ M)],
+                x[j] = keep_or_take(x[j], buf[padded<T>((first + j) ^ M)],
                                     keep_min);
             }
         }
     }
 }
 
-template <int E, int P, int D>
-__device__ __forceinline__ void half_cleaners(int (&x)[E], ShuffleBuf<E, P>& sh) {
+template <int E, int P, int D, typename T>
+__device__ __forceinline__ void half_cleaners(T (&x)[E],
+                                              ShuffleBuf<E, P, T>& sh) {
     if constexpr (D >= 1) {
-        reg_stage<E, P, D, D>(x, sh, RegTile<E, P>::kT);
+        reg_stage<E, P, D, D>(x, sh, RegTile<E, P, T>::kT);
         half_cleaners<E, P, D / 2>(x, sh);
     }
 }
@@ -310,11 +261,12 @@ __device__ void bitonic_levels(int (&x)[E], ShuffleBuf<E, P>& sh, int first,
 
 // Levels first..last unrolled (each stage body inlined where it runs): for
 // the levels whose stages all stay inside a warp, no block barrier.
-template <int E, int P, int L, int kLast>
-__device__ __forceinline__ void bitonic_levels_unrolled(int (&x)[E],
-                                                        ShuffleBuf<E, P>& sh) {
+template <int E, int P, int L, int kLast, typename T>
+__device__ __forceinline__ void bitonic_levels_unrolled(T (&x)[E],
+                                                        ShuffleBuf<E, P, T>& sh) {
     if constexpr (L <= kLast) {
-        reg_stage<E, P, (1 << L) - 1, 1 << (L - 1)>(x, sh, RegTile<E, P>::kT);
+        reg_stage<E, P, (1 << L) - 1, 1 << (L - 1)>(x, sh,
+                                                     RegTile<E, P, T>::kT);
         half_cleaners<E, P, (1 << L) / 4>(x, sh);
         bitonic_levels_unrolled<E, P, L + 1, kLast>(x, sh);
     }
@@ -328,15 +280,15 @@ __device__ __forceinline__ void bitonic_levels_unrolled(int (&x)[E],
 // tile stays blocked.  About three shared accesses a key a level, where a
 // bitonic level above the warp costs five shuffles and up to four shared
 // rounds a key.
-template <int E, int P>
-__device__ void merge_levels(int (&x)[E], ShuffleBuf<E, P>& sh, int first,
+template <int E, int P, typename T>
+__device__ void merge_levels(T (&x)[E], ShuffleBuf<E, P, T>& sh, int first,
                              int last) {
     const int o = threadIdx.x * E;
 #pragma unroll 1
     for (int level = first; level <= last; ++level) {
-        int* buf = sh.next();
+        T* buf = sh.next();
 #pragma unroll
-        for (int j = 0; j < E; ++j) buf[padded(o + j)] = x[j];
+        for (int j = 0; j < E; ++j) buf[padded<T>(o + j)] = x[j];
         __syncthreads();
         const int m = 1 << (level - 1);
         const int a0 = o & ~(2 * m - 1);   // the lower half; b0 the upper
@@ -345,15 +297,15 @@ __device__ void merge_levels(int (&x)[E], ShuffleBuf<E, P>& sh, int first,
         int lo = max(0, d - m), hi = min(d, m);
         while (lo < hi) {
             const int mid = (lo + hi) >> 1;
-            if (buf[padded(a0 + mid)] <= buf[padded(b0 + d - 1 - mid)]) {
+            if (buf[padded<T>(a0 + mid)] <= buf[padded<T>(b0 + d - 1 - mid)]) {
                 lo = mid + 1;
             } else {
                 hi = mid;
             }
         }
         int i = lo, j = d - lo;
-        int a = i < m ? buf[padded(a0 + i)] : 0;
-        int b = j < m ? buf[padded(b0 + j)] : 0;
+        T a = i < m ? buf[padded<T>(a0 + i)] : T(0);
+        T b = j < m ? buf[padded<T>(b0 + j)] : T(0);
 #pragma unroll
         for (int k = 0; k < E; ++k) {
             const bool take_a = j >= m || (i < m && a <= b);
@@ -361,7 +313,8 @@ __device__ void merge_levels(int (&x)[E], ShuffleBuf<E, P>& sh, int first,
             i += take_a;
             j += !take_a;
             const bool more = take_a ? i < m : j < m;
-            const int next = more ? buf[padded(take_a ? a0 + i : b0 + j)] : 0;
+            const T next = more ? buf[padded<T>(take_a ? a0 + i : b0 + j)]
+                                : T(0);
             a = take_a ? next : a;
             b = take_a ? b : next;
         }

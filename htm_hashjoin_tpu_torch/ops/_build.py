@@ -6,7 +6,8 @@ with a plain C interface, which ``ctypes`` loads.  The build runs at first
 use, never at import, into ``htm_hashjoin_tpu_torch/build/`` (listed in
 ``.gitignore``); the library's name carries a hash of the sources, the
 headers they include (``csrc/*.cuh``) and the flags, so an edited source or
-header builds anew.
+header builds anew.  ptxas's report (registers and spills per kernel) is
+kept beside the library; ``kernel_usage`` reads it.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -72,11 +74,14 @@ def _run_all(cmds: list[list[str]]) -> str:
 @functools.cache
 def build() -> tuple[Path, float, str]:
     """Compile the sources if their library is missing.  Returns (library
-    path, seconds spent compiling and linking, nvcc's report: registers and
-    shared memory per kernel, or "" when the library was already built)."""
+    path, seconds spent compiling and linking (0 when it was already
+    built), nvcc's report: registers, spills and shared memory per kernel,
+    kept beside the library)."""
     out = library_path()
+    report_path = out.with_suffix(".ptxas")
     if out.exists():
-        return out, 0.0, ""
+        return out, 0.0, (report_path.read_text() if report_path.exists()
+                          else "")
     BUILD_DIR.mkdir(exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
     nvcc = _nvcc()
@@ -90,6 +95,7 @@ def build() -> tuple[Path, float, str]:
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
+    report_path.write_text(report)
     os.replace(tmp, out)   # atomic: a concurrent build never loads half a file
     return out, time.perf_counter() - t0, report
 
@@ -127,3 +133,39 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = load_library().htm_cuda_error_string(code).decode()
         raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
+
+
+def _readable(mangled: str) -> str:
+    """``name<args>`` of a kernel in a source's unnamed namespace, from its
+    mangled name (integer template arguments only); else the name as
+    given."""
+    ns = re.match(r"_ZN(\d+)_GLOBAL__N_", mangled)
+    if not ns:
+        return mangled
+    rest = mangled[ns.end(1) + int(ns.group(1)):]
+    size = re.match(r"\d+", rest)
+    if not size:
+        return mangled
+    end = size.end() + int(size.group())
+    name, rest = rest[size.end():end], rest[end:]
+    args = (re.findall(r"L[a-z](-?\d+)E", rest[:rest.find("EE") + 1])
+            if rest.startswith("I") else [])
+    return name + (f"<{','.join(args)}>" if args else "")
+
+
+def kernel_usage(report: str) -> dict[str, tuple[int, int, int]]:
+    """Each entry function of nvcc's ``-Xptxas -v`` report -> (registers a
+    thread, spill store bytes, spill load bytes)."""
+    regs, spills, entry, props = {}, {}, None, None
+    for line in report.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            entry = m.group(1)
+        elif m := re.search(r"Function properties for (\S+)", line):
+            props = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            spills[props] = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and entry:
+            regs[entry] = int(m.group(1))
+    return {_readable(name): (n, *spills.get(name, (0, 0)))
+            for name, n in regs.items()}

@@ -5,10 +5,12 @@ Counterpart of ``htm_hashjoin_tpu/ops/pallas/join_kernels.py:
 _sort_kv_tiles_jit``.  ``sort_kv_tiles`` runs the hand-written CUDA kernel
 (``csrc/sort_kv_tiles.cu``) on CUDA tensors and the plain torch version
 ``sort_kv_tiles_ref`` on CPU tensors; it raises on any other device and
-never falls back from one to the other.  The kernel is not stable on equal
-keys (the plain version is): the two agree on the keys, and on the values
-as a multiset within each key of each tile.  The port's key-value global
-sort (K7, a radix sort) needs no phase A, so no join path runs this kernel.
+never falls back from one to the other.  Both are stable, descending tiles
+included (equal keys keep their input order), so the kernel equals the
+plain version bit for bit; the TPU's network is not stable, so the two
+agree with JAX on the keys, and on the values as a multiset within each key
+of each tile.  The port's key-value global sort (K7, a radix sort) needs no
+phase A, so no join path runs this kernel.
 """
 
 from __future__ import annotations
@@ -17,8 +19,9 @@ import torch
 
 from . import _args
 
-# Shared memory holds a tile of keys and one of values (227 KB a block):
-# up to 16384 pairs.
+# A block holds its tile as 64-bit (key, row) composites in registers, and
+# in shared memory (227 KB a block) their exchange buffer and the tile's
+# values, 13 bytes a pair with padding: up to 16384 pairs.
 KERNEL_TILES = (2048, 4096, 8192, 16384)
 MAX_TILE = KERNEL_TILES[-1]   # the largest block, the one chip_smoke.py times
 

@@ -5,8 +5,8 @@ exactly, the join
 plans that run them, the multipass radix join, one CLI run per path the
 planner chooses, and each scatter build's join (nocc, atomic, htm, npo,
 npo_st; sortmerge's plain route) with the card's line equal to the CPU's;
-K7a (the TPU's kv phase A, unstable) by the multiset rule
-within each tile, the Wisconsin kv split and three multijoin confs at a cut
+K7a (the TPU's kv phase A) bit for bit at every kernel tile in both
+directions, the Wisconsin kv split and three multijoin confs at a cut
 scale, and the distributed join's four configurations (eight shards on the
 card) with the card's line equal to the CPU's.
 
@@ -671,18 +671,62 @@ def test_k7_matches_plain(dev, tile, n_tiles, kind):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+K7A_KINDS = ["all equal", "sorted", "reversed", "16 copies a key",
+             "MAXI32 padding in the last block", "INT32_MIN and negatives"]
+
+
+def k7a_case(kind, tile, n_tiles, dev, seed=0):
+    """(keys, values) of n_tiles tiles (the kinds of
+    tests/test_torch_sort_kv.py); the values are distinct, so a tie out of
+    input order shows."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    n = tile * n_tiles
+    wide = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    if kind == "all equal":
+        keys = torch.full((n,), -7, dtype=torch.int32, device=dev)
+    elif kind == "sorted":
+        keys = torch.sort(wide >> 20).values
+    elif kind == "reversed":
+        keys = torch.sort(wide >> 20, descending=True).values
+    elif kind in ("16 copies a key", "MAXI32 padding in the last block"):
+        keys = torch.randint(0, max(1, n // 16), (n,), generator=gen,
+                             device=dev, dtype=torch.int32)
+        if kind != "16 copies a key":
+            keys[n - tile // 2 - 5:] = MAXI32
+    else:
+        keys = wide.clone()
+        keys[::97] = -2**31
+        keys[1::89] = MAXI32
+        keys[2::13] = -1
+    vals = (torch.randperm(n, generator=gen, device=dev) - n // 2).int()
+    return keys, vals
+
+
 @pytest.mark.parametrize("tile", skv.KERNEL_TILES)
 @pytest.mark.parametrize("alternate", [False, True])
-def test_k7a_matches_plain(dev, tile, alternate):
-    keys = duplicates(4 * tile, dev, 8)
-    vals = torch.arange(4 * tile, dtype=torch.int32, device=dev)
+@pytest.mark.parametrize("kind", K7A_KINDS)
+@pytest.mark.parametrize("n_tiles", [1, 64])
+def test_k7a_matches_plain(dev, tile, alternate, kind, n_tiles):
+    """The kernel sorts (key, row) composites, so it is stable and equals
+    the plain stable sort + gather bit for bit, descending tiles too."""
+    keys, vals = k7a_case(kind, tile, n_tiles, dev, seed=tile + n_tiles)
+    before = skv.LAUNCHES
     got = skv.sort_kv_tiles(keys, vals, tile=tile, alternate=alternate)
+    torch.cuda.synchronize()
+    assert skv.LAUNCHES == before + 1
     want = skv.sort_kv_tiles_ref(keys, vals, tile=tile, alternate=alternate)
-    assert torch.equal(got[0], want[0])
-    for t in range(4):
-        part = slice(t * tile, (t + 1) * tile)
-        assert torch.equal(kv_pairs(got[0][part], got[1][part]),
-                           kv_pairs(want[0][part], want[1][part]))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("tile", [1024, 32768])
+def test_k7a_refuses_a_tile_outside_its_kernel_tiles(dev, tile):
+    keys = torch.zeros(2 * tile, dtype=torch.int32, device=dev)
+    before = skv.LAUNCHES
+    with pytest.raises(ValueError, match="takes tile in"):
+        skv.sort_kv_tiles(keys, keys.clone(), tile=tile)
+    assert skv.LAUNCHES == before
 
 
 @pytest.mark.parametrize("algo", ["parallel", "independent", "radix"])

@@ -179,6 +179,34 @@ def test_library_name_follows_the_sources(tmp_path, monkeypatch):
     assert _build.library_path() not in (first, second)
 
 
+PTXAS_REPORT = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__41529741_15_banded_count_cu_fd576b1419banded_count_kernelILi512ELi3EEEvPKiS2_xS2_S2_PKxiPyPii' for 'sm_90a'
+ptxas info    : Function properties for _ZN48_GLOBAL__N__41529741_15_banded_count_cu_fd576b1419banded_count_kernelILi512ELi3EEEvPKiS2_xS2_S2_PKxiPyPii
+    24 bytes stack frame, 24 bytes spill stores, 24 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__747a7cf4_16_sort_kv_tiles_cu_14cb6d0b14sort_kv_kernelILi16ELi1024EEEvPKiS2_PiS3_i' for 'sm_90a'
+ptxas info    : Function properties for _ZN49_GLOBAL__N__747a7cf4_16_sort_kv_tiles_cu_14cb6d0b14sort_kv_kernelILi16ELi1024EEEvPKiS2_PiS3_i
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__38bfe0a2_19_fused_sort_count_cu_7847c37518tile_minmax_kernelEPKiPiS2_i' for 'sm_90a'
+ptxas info    : Function properties for _ZN52_GLOBAL__N__38bfe0a2_19_fused_sort_count_cu_7847c37518tile_minmax_kernelEPKiPiS2_i
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 31 registers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function 'htm_plain_entry' for 'sm_90a'
+ptxas info    : Used 8 registers, 384 bytes cmem[0]
+"""
+
+
+def test_kernel_usage_reads_registers_and_spills_per_kernel():
+    assert _build.kernel_usage(PTXAS_REPORT) == {
+        "banded_count_kernel<512,3>": (40, 24, 24),
+        "sort_kv_kernel<16,1024>": (64, 0, 0),
+        "tile_minmax_kernel": (31, 0, 0), "htm_plain_entry": (8, 0, 0)}
+    assert _build.kernel_usage("") == {}
+
+
 def other_kernel_calls(device="cpu"):
     """(module, plain-version name, call) of K2-K6, K7a, K7 and K1's band
     prepass on 2 tiles."""

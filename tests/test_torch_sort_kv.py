@@ -1,7 +1,8 @@
 """K7, the key-value global sort: the port's plain versions
 (``global_sort_kv_ref`` behind ``global_sort_kv_tiles``, and K7a's
 ``sort_kv_tiles_ref``) against the JAX package's Pallas kv sort in
-interpret mode, on the same numpy inputs.
+interpret mode, on the same numpy inputs; and K7a's kernel design, sorting
+(key, row) composites, in a plain model against ``sort_kv_tiles_ref``.
 
 The TPU network is not stable on equal keys (join_kernels.py:732-734), so
 the port is held to the output by the multiset rule: the keys equal, and
@@ -99,3 +100,69 @@ def test_bad_arguments_raise(bad):
     kw = dict(tile=3000 if bad == "tile" else TILE)
     with pytest.raises(ValueError):
         gkv.global_sort_kv_tiles(keys, vals, **kw)
+
+
+K7A_KINDS = ["all equal", "sorted", "reversed", "16 copies a key",
+             "MAXI32 padding in the last block", "INT32_MIN and negatives"]
+
+
+def k7a_case(kind, tile, n_tiles, seed=0):
+    """(keys, values) of n_tiles tiles: the edges of a stable block sort in
+    both directions (ties everywhere, runs in and against the sort's
+    direction, the split's padding, the sign and the complement's ends).
+    The values are distinct, so a tie out of input order shows."""
+    rng = np.random.default_rng(seed)
+    n = tile * n_tiles
+    wide = rng.integers(-2**31, 2**31, n, dtype=np.int64)
+    if kind == "all equal":
+        keys = np.full(n, -7)
+    elif kind == "sorted":
+        keys = np.sort(wide // 2**20)          # about 2 copies a key
+    elif kind == "reversed":
+        keys = np.sort(wide // 2**20)[::-1]
+    elif kind == "16 copies a key":
+        keys = rng.integers(0, max(1, n // 16), n)
+    elif kind == "MAXI32 padding in the last block":
+        keys = rng.integers(0, max(1, n // 16), n)
+        keys[n - tile // 2 - 5:] = MAXI32
+    else:
+        keys = wide.copy()
+        keys[::97] = -2**31
+        keys[1::89] = MAXI32
+        keys[2::13] = -1
+    vals = rng.permutation(n) - n // 2
+    return (torch.from_numpy(keys.astype(np.int32)),
+            torch.from_numpy(vals.astype(np.int32)))
+
+
+def composite_sort_model(keys, vals, tile, alternate):
+    """K7a's design in plain torch: each key becomes (k << 32) | row, ~k on
+    a descending tile, row its index in the tile; the composites are sorted
+    ascending; the keys are the high words (complemented back), the values
+    gathered by the low words."""
+    k = keys.view(-1, tile).long()
+    if alternate:
+        k[1::2] = ~k[1::2]
+    comp = (k << 32) | torch.arange(tile)
+    comp = torch.sort(comp, dim=1).values
+    high = (comp >> 32).int()
+    if alternate:
+        high[1::2] = ~high[1::2]
+    rows = comp & 0xFFFFFFFF
+    assert int(rows.max()) < tile
+    return (high.reshape(-1),
+            torch.gather(vals.view(-1, tile), 1, rows).reshape(-1))
+
+
+@pytest.mark.parametrize("tile", skv.KERNEL_TILES)
+@pytest.mark.parametrize("alternate", [False, True])
+@pytest.mark.parametrize("kind", K7A_KINDS)
+@pytest.mark.parametrize("n_tiles", [1, 64])
+def test_composite_model_equals_plain_sort(tile, alternate, kind, n_tiles):
+    """The composite packing gives the stable sort bit for bit, descending
+    tiles too: catches sign, complement and tie-order faults in the
+    kernel's design before the card runs it."""
+    keys, vals = k7a_case(kind, tile, n_tiles, seed=tile + n_tiles)
+    got = composite_sort_model(keys, vals, tile, alternate)
+    want = skv.sort_kv_tiles_ref(keys, vals, tile=tile, alternate=alternate)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
