@@ -12,9 +12,14 @@ Every ``--algo`` name runs, the mc names (``NPO``, ``NPO_st``, ``PRO``
 ``--meshShape`` runs the distributed join (``parallel/dist_join.py``) on a
 mesh of shards placed by the device-mapping file.
 ``--profile DIR`` writes a torch.profiler trace of the join (not of the
-generation) into DIR, ``--counters [CFG]`` puts per-phase counters in the
+generation) into DIR, with the port's own ``hj.*`` spans (the join, its
+sniffs, plans, enqueues, readbacks and line: ``utils/profiler.SPANS``)
+beside the kernels, ``--counters [CFG]`` puts per-phase counters in the
 line (``utils/profiler.py`` says what they count), and ``--throughput``
-prints the ns/tuple report after the line.
+prints the ns/tuple report after the line.  Past the reference's schema
+the line carries two counters of the join's own: ``readbacks``, the
+host's waits on the device, and ``sortedKeys``, the keys the global sort
+(K3) was given, padding included.
 
 Usage:
     python -m htm_hashjoin_tpu_torch.cli --algo htm --rSize $((2**20)) --dataDistr local_shuffle

@@ -26,8 +26,9 @@ import torch
 from ..config import JoinConfig
 from ..relation import Relation
 from ..utils.metrics import JoinMetrics
-from ..utils.timing import PhaseTimer
-from .common import htm_num_buckets
+from ..utils.profiler import span
+from ..utils.timing import PhaseTimer, readback
+from .common import htm_num_buckets, join_scope
 from .htm import htm_join
 from .radix import radix_join
 
@@ -50,30 +51,38 @@ def _sniff(keys: torch.Tensor, num_partitions: int, chunk: int):
 
 
 def sniff_statistics(keys: torch.Tensor, cfg: JoinConfig, timer: PhaseTimer):
-    """(duplicate fraction, max key) of the sniff sample, in one readback.
-    The fraction is the float32 mean of the JAX package, taken on the
-    host from the exact counts."""
+    """(duplicate fraction, max key) of the sniff sample, in one readback;
+    the ``sniff`` phase times it from the enqueue to the answer.  The
+    fraction is the float32 mean of the JAX package, taken on the host
+    from the exact counts."""
     chunk = min(cfg.sniff_rounds * cfg.sniff_chunk,
                 max(1, SNIFF_TARGET // max(1, cfg.num_partitions)))
-    dups, max_key = timer.timed(
-        "sniff", _sniff, keys, cfg.num_partitions, chunk).tolist()
+    with timer.phase("sniff"):
+        with span("hj.sniff"):
+            stats = _sniff(keys, cfg.num_partitions, chunk)
+        dups, max_key = readback(stats)
     part = max(1, keys.numel() // cfg.num_partitions)
     pairs = cfg.num_partitions * min(chunk, part) - 1
     dup_frac = np.float32(dups) / np.float32(pairs) if pairs else np.nan
     return float(dup_frac), int(max_key)
 
 
+@join_scope
 def adaptive_join(r: Relation, s: Optional[Relation] = None,
                   cfg: JoinConfig = JoinConfig()) -> JoinMetrics:
     timer = PhaseTimer()
     dup_frac, max_key = sniff_statistics(r.keys, cfg, timer)
-    dense = max_key <= 3 * htm_num_buckets(cfg.r_size)
-    use_htm = dup_frac < 0.004 and dense
-    m = (htm_join if use_htm else radix_join)(r, s, cfg)
-    m.algo = "adaptive"
-    m.firstRoundTime = timer.micros.get("sniff", 0.0)
-    m.firstRoundFailureFraction = dup_frac
-    m.extra["chosenPath"] = "htm" if use_htm else "radix"
-    m.extra["sniffMaxKey"] = max_key
-    m.extra["sniffDense"] = bool(dense)
+    # the chosen join's host work between its own spans and the line are
+    # the planner's
+    with span("hj.plan"):
+        dense = max_key <= 3 * htm_num_buckets(cfg.r_size)
+        use_htm = dup_frac < 0.004 and dense
+        m = (htm_join if use_htm else radix_join)(r, s, cfg)
+        with span("hj.line"):
+            m.algo = "adaptive"
+            m.firstRoundTime = timer.micros.get("sniff", 0.0)
+            m.firstRoundFailureFraction = dup_frac
+            m.extra["chosenPath"] = "htm" if use_htm else "radix"
+            m.extra["sniffMaxKey"] = max_key
+            m.extra["sniffDense"] = bool(dense)
     return m

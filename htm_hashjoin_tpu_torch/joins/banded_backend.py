@@ -38,6 +38,8 @@ from ..ops.global_sort import global_sort_tiles
 from ..ops.probe import segmented_count_tagged
 from ..ops.sort_tiles import sort_tiles, tile_stats
 from ..ops.tile_minmax import tile_minmax
+from ..utils.profiler import span
+from ..utils.timing import readback
 
 # The JAX package's 65536-key tile is 256 KB of int32, more than a thread
 # block's 227 KB of shared memory; at 8192 keys K1's two exchange buffers,
@@ -185,10 +187,11 @@ def tagged_count(r_keys: torch.Tensor, skeys: torch.Tensor, *,
     global sort of the int32 composite key*2+tag, then a streaming
     segmented count.  Keys must be < 2^29; MAXI32 entries of R are
     padding."""
-    comp_r = torch.where(r_keys == MAXI32, MAXI32, r_keys * 2)
-    comp = torch.cat([comp_r.reshape(-1), skeys.reshape(-1) * 2 + 1])
-    comp_sorted = global_sort_tiles(to_tiles_pow2(comp, tile), tile=tile)
-    return segmented_count_tagged(comp_sorted[:comp.numel()])
+    with span("hj.enqueue"):
+        comp_r = torch.where(r_keys == MAXI32, MAXI32, r_keys * 2)
+        comp = torch.cat([comp_r.reshape(-1), skeys.reshape(-1) * 2 + 1])
+        comp_sorted = global_sort_tiles(to_tiles_pow2(comp, tile), tile=tile)
+        return segmented_count_tagged(comp_sorted[:comp.numel()])
 
 
 def _check_status(status_max: int) -> None:
@@ -214,20 +217,30 @@ def _overflow_tile_matches(sorted_flat: torch.Tensor,
     b = int(bad_tiles.numel())
     if not b:
         return 0
-    n_tiles = sorted_flat.numel() // tile
-    keys = sorted_flat.view(-1, tile)[bad_tiles.to(sorted_flat.device)]
-    if b > max(4, n_tiles // 8):
-        return int(tagged_count(keys.reshape(-1), skeys_sorted, tile=tile))
-    bad_sorted = global_sort_tiles(to_tiles_pow2(keys.reshape(-1), tile),
-                                   tile=tile)
-    mins, maxs, _ = tile_stats(bad_sorted, tile)
-    row_off, rows_needed = _rows(*_slice_offsets(skeys_sorted, mins, maxs))
-    counts, status = banded_count(bad_sorted, s2d, row_off,
-                                  _n_chunks(rows_needed, tile), tile=tile)
-    head = torch.stack([_sum_i64(counts),
-                        status.max().to(torch.int64)]).tolist()
-    _check_status(head[1])
-    return head[0]
+    with span("hj.repair"):
+        n_tiles = sorted_flat.numel() // tile
+        with span("hj.enqueue"):
+            # from pageable memory the copy is staged before the call
+            # returns: no wait on the device
+            on_device = bad_tiles.to(sorted_flat.device, non_blocking=True)
+            keys = sorted_flat.view(-1, tile)[on_device]
+        if b > max(4, n_tiles // 8):
+            return readback(tagged_count(keys.reshape(-1), skeys_sorted,
+                                         tile=tile))
+        with span("hj.enqueue"):
+            bad_sorted = global_sort_tiles(
+                to_tiles_pow2(keys.reshape(-1), tile), tile=tile)
+            mins, maxs, _ = tile_stats(bad_sorted, tile)
+            row_off, rows_needed = _rows(*_slice_offsets(skeys_sorted, mins,
+                                                         maxs))
+            counts, status = banded_count(bad_sorted, s2d, row_off,
+                                          _n_chunks(rows_needed, tile),
+                                          tile=tile)
+            head = torch.stack([_sum_i64(counts),
+                                status.max().to(torch.int64)])
+        head = readback(head)
+        _check_status(head[1])
+        return head[0]
 
 
 # ---------------------------------------------------------------------------
@@ -241,21 +254,23 @@ def banded_probe(build: BandedBuild, skeys_sorted: torch.Tensor, *,
     Tiles whose band needs more than ``max_chunks`` chunks are recounted by
     the batched repair.  Returns (matches, overflow_tiles)."""
     tile = build.tile
-    if s2d is None:
-        s2d = prepare_probe_side(skeys_sorted, tile, max_chunks)
-    row_off, rows_needed = _rows(*_slice_offsets(skeys_sorted, build.mins,
-                                                 build.maxs))
-    n_chunks = _n_chunks(rows_needed, tile)
-    overflow = n_chunks > max_chunks
-    counts, status = banded_count(build.sorted_flat, s2d, row_off,
-                                  torch.where(overflow, 0, n_chunks),
-                                  tile=tile)
-    bundle = torch.cat([torch.stack([_sum_i64(counts),
-                                     status.max().to(torch.int64)]),
-                        overflow.to(torch.int64)]).cpu()
-    _check_status(int(bundle[1]))
-    bad_tiles = torch.nonzero(bundle[2:]).reshape(-1)
-    matches = int(bundle[0]) + _overflow_tile_matches(
+    with span("hj.enqueue"):
+        if s2d is None:
+            s2d = prepare_probe_side(skeys_sorted, tile, max_chunks)
+        row_off, rows_needed = _rows(*_slice_offsets(
+            skeys_sorted, build.mins, build.maxs))
+        n_chunks = _n_chunks(rows_needed, tile)
+        overflow = n_chunks > max_chunks
+        counts, status = banded_count(build.sorted_flat, s2d, row_off,
+                                      torch.where(overflow, 0, n_chunks),
+                                      tile=tile)
+        bundle = torch.cat([torch.stack([_sum_i64(counts),
+                                         status.max().to(torch.int64)]),
+                            overflow.to(torch.int64)])
+    bundle = readback(bundle)
+    _check_status(bundle[1])
+    bad_tiles = torch.nonzero(torch.tensor(bundle[2:])).reshape(-1)
+    matches = bundle[0] + _overflow_tile_matches(
         build.sorted_flat, skeys_sorted, bad_tiles, tile, s2d)
     return matches, int(bad_tiles.numel())
 
@@ -351,12 +366,13 @@ def enqueue_banded_join(rkeys: torch.Tensor, skeys_sorted: torch.Tensor, *,
     violations == 0 and flagged == 0 (else run ``banded_join_pipelined``,
     which retries and repairs).  ``unique_both`` is kept for the JAX
     signature: the general count is exact for unique keys too."""
-    r_flat = to_tiles(rkeys, tile)
-    method, passes = _sort_method(locality_window, tile)
-    if s2d is None:
-        s2d = prepare_probe_side(skeys_sorted, tile, max_chunks)
-    return _banded_join_device(r_flat, s2d, skeys_sorted, tile=tile,
-                               method=method, passes=passes)
+    with span("hj.enqueue"):
+        r_flat = to_tiles(rkeys, tile)
+        method, passes = _sort_method(locality_window, tile)
+        if s2d is None:
+            s2d = prepare_probe_side(skeys_sorted, tile, max_chunks)
+        return _banded_join_device(r_flat, s2d, skeys_sorted, tile=tile,
+                                   method=method, passes=passes)
 
 
 def enqueue_full_join(rkeys: torch.Tensor, skeys_sorted: torch.Tensor, *,
@@ -369,22 +385,24 @@ def enqueue_full_join(rkeys: torch.Tensor, skeys_sorted: torch.Tensor, *,
                       s2d: Optional[torch.Tensor] = None):
     """Enqueue one full build+probe on ANY plan without a fence; returns the
     raw device result tuple (read ``torch.stack(res[:5])`` once)."""
-    (r_flat, s2d, skeys_sorted, method, passes,
-     narrow) = _prepare_join(rkeys, skeys_sorted, tile=tile,
-                             locality_window=locality_window,
-                             presort=presort, presorted=presorted,
-                             sort_s=sort_s, unique_both=unique_both,
-                             max_chunks=max_chunks, narrow=narrow, s2d=s2d)
-    return _banded_join_device(r_flat, s2d, skeys_sorted, tile=tile,
-                               method=method, passes=passes,
-                               max_chunks=max_chunks, narrow=narrow)
+    with span("hj.enqueue"):
+        (r_flat, s2d, skeys_sorted, method, passes,
+         narrow) = _prepare_join(rkeys, skeys_sorted, tile=tile,
+                                 locality_window=locality_window,
+                                 presort=presort, presorted=presorted,
+                                 sort_s=sort_s, unique_both=unique_both,
+                                 max_chunks=max_chunks, narrow=narrow,
+                                 s2d=s2d)
+        return _banded_join_device(r_flat, s2d, skeys_sorted, tile=tile,
+                                   method=method, passes=passes,
+                                   max_chunks=max_chunks, narrow=narrow)
 
 
 def _fence(res) -> list:
     """The one host sync: the five scalars and the per-tile flags in one
     device-to-host copy."""
-    bundle = torch.cat([torch.stack(res[:5]), res[8].to(torch.int64)]).cpu()
-    return bundle.tolist()
+    return readback(torch.cat([torch.stack(res[:5]),
+                               res[8].to(torch.int64)]))
 
 
 def banded_join_pipelined(rkeys: torch.Tensor, skeys_sorted: torch.Tensor, *,
@@ -410,41 +428,48 @@ def banded_join_pipelined(rkeys: torch.Tensor, skeys_sorted: torch.Tensor, *,
     ``presorted`` takes R as already sorted; ``sort_s`` sorts an unsorted
     probe side first; ``narrow`` picks the narrow count (default: unique
     keys and locality plans)."""
-    (r_flat, s2d, skeys_sorted, method, passes,
-     narrow) = _prepare_join(rkeys, skeys_sorted, tile=tile,
-                             locality_window=locality_window,
-                             presort=presort, presorted=presorted,
-                             sort_s=sort_s, unique_both=unique_both,
-                             max_chunks=max_chunks, narrow=narrow, s2d=s2d)
-    kw = dict(tile=tile, max_chunks=max_chunks, narrow=narrow)
-    res = _banded_join_device(r_flat, s2d, skeys_sorted, method=method,
-                              passes=passes, **kw)
+    with span("hj.enqueue"):
+        (r_flat, s2d, skeys_sorted, method, passes,
+         narrow) = _prepare_join(rkeys, skeys_sorted, tile=tile,
+                                 locality_window=locality_window,
+                                 presort=presort, presorted=presorted,
+                                 sort_s=sort_s, unique_both=unique_both,
+                                 max_chunks=max_chunks, narrow=narrow,
+                                 s2d=s2d)
+        kw = dict(tile=tile, max_chunks=max_chunks, narrow=narrow)
+        res = _banded_join_device(r_flat, s2d, skeys_sorted, method=method,
+                                  passes=passes, **kw)
     bundle = _fence(res)
     violations = bundle[1]
     resorted = False
     if method in ("oddeven", "blocks") and violations > 0:   # abort -> retry
-        res = _banded_join_device(r_flat, s2d, skeys_sorted,
-                                  method="bitonic", passes=0, **kw)
-        bundle = _fence(res)
+        with span("hj.retry"):
+            with span("hj.enqueue"):
+                res = _banded_join_device(r_flat, s2d, skeys_sorted,
+                                          method="bitonic", passes=0, **kw)
+            bundle = _fence(res)
         resorted = True
-    flags = bundle[5:]
-    _check_status(max(flags, default=0))
-    matches, overflow, out_sum, in_sum = bundle[0], bundle[2], *bundle[3:5]
-    n_tiles = r_flat.numel() // tile
-    if overflow > max(4, n_tiles // 8):
-        if not presort and not presorted:
-            out = banded_join_pipelined(rkeys, skeys_sorted, tile=tile,
-                                        presort=True,
-                                        unique_both=unique_both,
-                                        max_chunks=max_chunks, narrow=narrow,
-                                        s2d=s2d)
-            return out._replace(violations=violations,
-                                overflow_tiles=overflow, resorted=True)
-        matches = int(tagged_count(rkeys, skeys_sorted, tile=tile))
+    with span("hj.plan"):
+        flags = bundle[5:]
+        _check_status(max(flags, default=0))
+        matches, overflow, out_sum, in_sum = (bundle[0], bundle[2],
+                                              *bundle[3:5])
+        mass = overflow > max(4, r_flat.numel() // tile // 8)
+        if overflow and not mass:
+            bad_tiles = torch.nonzero(torch.tensor(flags)).reshape(-1)
+    if mass and not presort and not presorted:   # replan: sort first
+        out = banded_join_pipelined(rkeys, skeys_sorted, tile=tile,
+                                    presort=True, unique_both=unique_both,
+                                    max_chunks=max_chunks, narrow=narrow,
+                                    s2d=s2d)
+        return out._replace(violations=violations, overflow_tiles=overflow,
+                            resorted=True)
+    if mass:                              # the mass path: count it all again
+        with span("hj.recount"):
+            matches = readback(tagged_count(rkeys, skeys_sorted, tile=tile))
         return BandedJoinOutcome(matches, violations, overflow, out_sum,
                                  True, in_sum)
     if overflow:                          # skew spill -> batched repair
-        bad_tiles = torch.nonzero(torch.tensor(flags)).reshape(-1)
         matches += _overflow_tile_matches(res[5], skeys_sorted, bad_tiles,
                                           tile, s2d)
     return BandedJoinOutcome(matches, violations, overflow, out_sum,
@@ -506,8 +531,10 @@ def enqueue_banded_build(rkeys: torch.Tensor, *, tile: int = DEFAULT_TILE,
     """Enqueue one build-only pipeline without a fence; returns the device
     head [violations, outputSum, inputSum] (int64).  For sustained timing:
     enqueue K, read the last head once."""
-    return _enqueue_build(rkeys, tile=tile, locality_window=locality_window,
-                          presort=presort, presorted=presorted)[0]
+    with span("hj.enqueue"):
+        return _enqueue_build(rkeys, tile=tile,
+                              locality_window=locality_window,
+                              presort=presort, presorted=presorted)[0]
 
 
 def banded_build_pipelined(rkeys: torch.Tensor, *, tile: int = DEFAULT_TILE,
@@ -525,26 +552,32 @@ def banded_build_pipelined(rkeys: torch.Tensor, *, tile: int = DEFAULT_TILE,
     per-tile violations, per-tile duplicate aliases), both int64 CPU
     tensors riding the same readback; a retry reads the exact artifact's
     output sum (and duplicate aliases) back once more."""
-    head, viols, dups, r_flat, optimistic = _enqueue_build(
-        rkeys, tile=tile, locality_window=locality_window, presort=presort,
-        presorted=presorted, track=return_tile_violations)
-    n_tiles = viols.numel()
-    if return_tile_violations:
-        head = torch.cat([head, viols, dups])
-    bundle = head.cpu()
+    with span("hj.enqueue"):
+        head, viols, dups, r_flat, optimistic = _enqueue_build(
+            rkeys, tile=tile, locality_window=locality_window,
+            presort=presort, presorted=presorted,
+            track=return_tile_violations)
+        n_tiles = viols.numel()
+        if return_tile_violations:
+            head = torch.cat([head, viols, dups])
+    bundle = readback(head)
     resorted = False
     if optimistic and bundle[0] > 0:      # abort -> exact retry
-        sorted_flat, _ = sort_tiles(r_flat, tile=tile, method="bitonic")
-        again = _key_sum(sorted_flat).reshape(1)
-        if return_tile_violations:
-            again = torch.cat([again, _tile_dup_counts(sorted_flat, tile)])
-        again = again.cpu()
+        with span("hj.retry"):
+            with span("hj.enqueue"):
+                sorted_flat, _ = sort_tiles(r_flat, tile=tile,
+                                            method="bitonic")
+                again = _key_sum(sorted_flat).reshape(1)
+                if return_tile_violations:
+                    again = torch.cat([again,
+                                       _tile_dup_counts(sorted_flat, tile)])
+            again = readback(again)
         bundle[1] = again[0]
         if return_tile_violations:
             bundle[3 + n_tiles:] = again[1:]
         resorted = True
-    out = BandedJoinOutcome(0, int(bundle[0]), 0, int(bundle[1]), resorted,
-                            int(bundle[2]))
+    out = BandedJoinOutcome(0, bundle[0], 0, bundle[1], resorted, bundle[2])
     if return_tile_violations:
-        return out, bundle[3:3 + n_tiles], bundle[3 + n_tiles:]
+        return out, *(torch.tensor(v, dtype=torch.int64) for v in
+                      (bundle[3:3 + n_tiles], bundle[3 + n_tiles:]))
     return out

@@ -17,6 +17,7 @@ keys, and on keys at or above PACK_LIMIT.
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import NamedTuple, Optional, Tuple
 
@@ -25,10 +26,11 @@ import torch
 from ..config import Distribution, JoinConfig
 from ..constants import LANES, MAXI32, PACK_LIMIT
 from ..relation import Relation, next_pow2
-from ..ops import insert, probe, radix_sort, sortops
+from ..ops import global_sort, insert, probe, radix_sort, sortops
+from ..utils import timing
 from ..utils.metrics import JoinMetrics
-from ..utils.profiler import active_counters, traffic_counters
-from ..utils.timing import PhaseTimer
+from ..utils.profiler import active_counters, span, traffic_counters
+from ..utils.timing import PhaseTimer, readback
 from .banded_backend import (DEFAULT_TILE, MAX_CHUNKS_DEFAULT,
                              banded_build_pipelined, banded_join_pipelined,
                              enqueue_banded_build, enqueue_full_join,
@@ -46,6 +48,35 @@ _UNIQUE_DISTS = frozenset({
 # bound is its tile, 65536; at the port's tile 8192 and 16 chunks it is
 # 61,376.
 WIDE_BAND_MAX = ((MAX_CHUNKS_DEFAULT - 1) * DEFAULT_TILE - LANES) // 2
+
+
+_IN_STEP = False   # a join step (join_scope) is open
+
+
+def join_scope(join):
+    """A ``joins.DISPATCH`` entry as one join step.  Its outermost call
+    opens the ``hj.join`` span and writes the step's two counters into its
+    line: ``readbacks``, the host's waits on the device
+    (``utils.timing.READBACKS``), and ``sortedKeys``, the keys K3 was given
+    (``ops.global_sort.SORTED_KEYS``), each read as a difference over the
+    step.  A call inside the step (``adaptive_join`` calls ``htm_join`` or
+    ``radix_join``) is part of it and opens nothing."""
+    @functools.wraps(join)
+    def step(*args, **kwargs):
+        global _IN_STEP
+        if _IN_STEP:
+            return join(*args, **kwargs)
+        _IN_STEP = True
+        reads, keys = timing.READBACKS, global_sort.SORTED_KEYS
+        try:
+            with span("hj.join"):
+                m = join(*args, **kwargs)
+                m.extra["readbacks"] = timing.READBACKS - reads
+                m.extra["sortedKeys"] = global_sort.SORTED_KEYS - keys
+                return m
+        finally:
+            _IN_STEP = False
+    return step
 
 
 def keys_are_unique(cfg: JoinConfig) -> bool:
@@ -94,9 +125,10 @@ class SpillState:
 
     def __init__(self, keys: torch.Tensor, pending: torch.Tensor,
                  timer: PhaseTimer, head=()):
-        stats = torch.stack([torch.sum(pending, dtype=torch.int64),
-                             probe.masked_sum(keys, pending),
-                             *(h.to(torch.int64) for h in head)]).tolist()
+        stats = readback(torch.stack([
+            torch.sum(pending, dtype=torch.int64),
+            probe.masked_sum(keys, pending),
+            *(h.to(torch.int64) for h in head)]))
         self.count, self.key_sum, *self.head = stats
         self._spill: Optional[torch.Tensor] = None
         if self.count > 0:
@@ -107,8 +139,8 @@ class SpillState:
         """Matches of ``skeys`` against the spill (multiset-exact)."""
         if self._spill is None:
             return 0
-        return int(timer.timed("probe_spill", sortops.merge_count,
-                               self._spill, skeys))
+        return readback(timer.timed("probe_spill", sortops.merge_count,
+                                    self._spill, skeys))
 
 
 def finish_metrics(m: JoinMetrics, timer: PhaseTimer,
@@ -121,22 +153,23 @@ def finish_metrics(m: JoinMetrics, timer: PhaseTimer,
     totalFailedPercentage counts only the residual conflicts.  The timed
     phases' counters (``--counters``) go into the line as ``counters``,
     the reference's per-phase PCM dumps (no_partitioning_join.c:458-527)."""
-    if timer.counters:
-        m.extra["counters"] = timer.counters
-    micros = timer.micros
-    m.hashBuildTimeInMicroseconds = (micros.get("build", 0.0)
-                                     + micros.get("spill", 0.0))
-    if "probe" in micros or "probe_spill" in micros:
-        m.probeTimeInMicroseconds = (micros.get("probe", 0.0)
-                                     + micros.get("probe_spill", 0.0))
-    if total_matches is not None:
-        m.totalMatches = total_matches
-    if m.rSize:
-        m.failedTransactionPercentage = m.failedTransactions / m.rSize
-        m.totalFailedPercentage = (
-            m.conflictCount / m.rSize if retry else
-            (m.failedTransactions + m.conflictCount) / m.rSize)
-    return m
+    with span("hj.line"):
+        if timer.counters:
+            m.extra["counters"] = timer.counters
+        micros = timer.micros
+        m.hashBuildTimeInMicroseconds = (micros.get("build", 0.0)
+                                         + micros.get("spill", 0.0))
+        if "probe" in micros or "probe_spill" in micros:
+            m.probeTimeInMicroseconds = (micros.get("probe", 0.0)
+                                         + micros.get("probe_spill", 0.0))
+        if total_matches is not None:
+            m.totalMatches = total_matches
+        if m.rSize:
+            m.failedTransactionPercentage = m.failedTransactions / m.rSize
+            m.totalFailedPercentage = (
+                m.conflictCount / m.rSize if retry else
+                (m.failedTransactions + m.conflictCount) / m.rSize)
+        return m
 
 
 def resolve_relations(r: Relation, s: Optional[Relation], cfg: JoinConfig
@@ -264,7 +297,9 @@ def adaptive_window_estimate(rkeys: torch.Tensor, cfg: JoinConfig,
     statistics that pick the engine's sorter."""
     chunk, k = _sniff_shape(rkeys.numel(), cfg)
     t0 = time.perf_counter()
-    mx, dups = _sniff_profile(rkeys, chunk, k).tolist()   # the one readback
+    with span("hj.sniff"):
+        stats = _sniff_profile(rkeys, chunk, k)
+    mx, dups = readback(stats)                             # the one readback
     sniff_us = (time.perf_counter() - t0) * 1e6
     if timer is not None:
         timer.micros["sniff"] = timer.micros.get("sniff", 0.0) + sniff_us
@@ -292,8 +327,9 @@ def sniff_enqueue(rkeys: torch.Tensor, cfg: JoinConfig):
     """Enqueue the displacement sniff without a fence.  Returns (device
     stats [maxDisplacement, sampleDuplicates] int64, chunk, k): stack the
     stats into the join's own readback."""
-    chunk, k = _sniff_shape(rkeys.numel(), cfg)
-    return _sniff_profile(rkeys, chunk, k), chunk, k
+    with span("hj.sniff"):
+        chunk, k = _sniff_shape(rkeys.numel(), cfg)
+        return _sniff_profile(rkeys, chunk, k), chunk, k
 
 
 def sniff_stats_dict(mx: int, dups: int, chunk: int, k: int) -> dict:
@@ -371,26 +407,27 @@ def pallas_metrics(cfg: JoinConfig, algo: str, outcome, elapsed_us: float,
 
     ``plan`` (the plan the join ran) and ``sort_s`` (whether it sorted S on
     the device) feed the ``--counters`` traffic model."""
-    m = JoinMetrics(algo=algo, rSize=cfg.r_size,
-                    transactionSize=cfg.transaction_size,
-                    probeLength=cfg.probe_length,
-                    conflictCount=outcome.overflow_tiles,
-                    failedTransactions=outcome.violations,
-                    inputSum=outcome.input_sum,
-                    outputSum=outcome.output_sum,
-                    hashBuildTimeInMicroseconds=elapsed_us)
-    if matches is not None:
-        m.totalMatches = matches
-    m.extra["backend"] = "pallas_banded"
-    m.extra["resorted"] = outcome.resorted
-    _record_traffic(m, cfg, plan, matches is not None, sort_s, elapsed_us)
-    if cfg.r_size:
-        # fractions, with the TM_RETRY rule (HTMHashBuild.hpp:410-415)
-        m.failedTransactionPercentage = m.failedTransactions / cfg.r_size
-        m.totalFailedPercentage = (
-            m.conflictCount / cfg.r_size if cfg.retry else
-            (m.failedTransactions + m.conflictCount) / cfg.r_size)
-    return m
+    with span("hj.line"):
+        m = JoinMetrics(algo=algo, rSize=cfg.r_size,
+                        transactionSize=cfg.transaction_size,
+                        probeLength=cfg.probe_length,
+                        conflictCount=outcome.overflow_tiles,
+                        failedTransactions=outcome.violations,
+                        inputSum=outcome.input_sum,
+                        outputSum=outcome.output_sum,
+                        hashBuildTimeInMicroseconds=elapsed_us)
+        if matches is not None:
+            m.totalMatches = matches
+        m.extra["backend"] = "pallas_banded"
+        m.extra["resorted"] = outcome.resorted
+        _record_traffic(m, cfg, plan, matches is not None, sort_s, elapsed_us)
+        if cfg.r_size:
+            # fractions, with the TM_RETRY rule (HTMHashBuild.hpp:410-415)
+            m.failedTransactionPercentage = m.failedTransactions / cfg.r_size
+            m.totalFailedPercentage = (
+                m.conflictCount / cfg.r_size if cfg.retry else
+                (m.failedTransactions + m.conflictCount) / cfg.r_size)
+        return m
 
 
 def pallas_unique_join(algo: str, r: Relation, s: Optional[Relation],
@@ -443,31 +480,33 @@ def maybe_pipeline_timing(m: JoinMetrics, cfg: JoinConfig, plan: BandedPlan,
     depth = cfg.pipeline_depth
     if depth <= 1 or out.resorted or out.violations or out.overflow_tiles:
         return
-    s2d = None
-    if s is not None and s.assume_sorted:
-        # sorted S is tiled and padded once and reused (an input, not
-        # per-join work); unsorted S keeps its device sort in the chain
-        s2d = prepare_probe_side(s.keys)
-        s2d[:1].tolist()   # resident before timing starts
-    t0 = time.perf_counter()
-    if s is not None:
-        for _ in range(depth):
-            res = enqueue_full_join(r.keys, s.keys,
-                                    locality_window=plan.window,
-                                    presort=plan.presort,
-                                    presorted=plan.presorted,
-                                    narrow=plan.narrow,
-                                    sort_s=not s.assume_sorted,
-                                    unique_both=keys_unique_both(cfg),
-                                    s2d=s2d)
-        torch.stack(res[:5]).tolist()            # one fence for the batch
-    else:
-        for _ in range(depth):
-            head = enqueue_banded_build(r.keys, locality_window=plan.window,
+    with span("hj.line"):
+        s2d = None
+        if s is not None and s.assume_sorted:
+            # sorted S is tiled and padded once and reused (an input, not
+            # per-join work); unsorted S keeps its device sort in the chain
+            s2d = prepare_probe_side(s.keys)
+            readback(s2d[:1])   # resident before timing starts
+        t0 = time.perf_counter()
+        if s is not None:
+            for _ in range(depth):
+                res = enqueue_full_join(r.keys, s.keys,
+                                        locality_window=plan.window,
                                         presort=plan.presort,
-                                        presorted=plan.presorted)
-        head.tolist()
-    per_point_us = (time.perf_counter() - t0) * 1e6 / depth
-    m.extra["singleRunTimeInMicroseconds"] = m.hashBuildTimeInMicroseconds
-    m.extra["pipelineDepth"] = depth
-    m.hashBuildTimeInMicroseconds = per_point_us
+                                        presorted=plan.presorted,
+                                        narrow=plan.narrow,
+                                        sort_s=not s.assume_sorted,
+                                        unique_both=keys_unique_both(cfg),
+                                        s2d=s2d)
+            readback(torch.stack(res[:5]))           # one fence for the batch
+        else:
+            for _ in range(depth):
+                head = enqueue_banded_build(r.keys,
+                                            locality_window=plan.window,
+                                            presort=plan.presort,
+                                            presorted=plan.presorted)
+            readback(head)
+        per_point_us = (time.perf_counter() - t0) * 1e6 / depth
+        m.extra["singleRunTimeInMicroseconds"] = m.hashBuildTimeInMicroseconds
+        m.extra["pipelineDepth"] = depth
+        m.hashBuildTimeInMicroseconds = per_point_us

@@ -33,13 +33,14 @@ from ..ops import insert, probe
 from ..ops.hashing import locality_hash
 from ..relation import Relation
 from ..utils.metrics import JoinMetrics
-from ..utils.timing import PhaseTimer
+from ..utils.profiler import span
+from ..utils.timing import PhaseTimer, readback
 from .banded_backend import (DEFAULT_TILE, BandedJoinOutcome,
                              banded_build_pipelined, banded_join_pipelined,
                              enqueue_banded_build, enqueue_full_join)
 from .common import (BandedPlan, SpillState, adaptive_guess_plan,
                      adaptive_window_estimate, dial_window, finish_metrics,
-                     htm_num_buckets, keys_unique_both,
+                     htm_num_buckets, join_scope, keys_unique_both,
                      maybe_pipeline_timing, pallas_metrics, pallas_plan,
                      resolve_relations, sniff_enqueue, sniff_stats_dict,
                      use_pallas_engine, use_pallas_engine_build)
@@ -111,10 +112,11 @@ def _htm_join_pallas_adaptive(r: Relation, s: Relation,
     costs the engine run and nothing more; a dirty one replans from the
     sniffed displacement and reruns through the self-repairing pipeline
     (the abort -> retry protocol, with the dial riding the abort)."""
-    sort_s = not s.assume_sorted
-    unique_both = keys_unique_both(cfg)
-    ck = _dial_key(r, cfg, True)
-    cached = _dial_lookup(ck, r.keys)
+    with span("hj.plan"):
+        sort_s = not s.assume_sorted
+        unique_both = keys_unique_both(cfg)
+        ck = _dial_key(r, cfg, True)
+        cached = _dial_lookup(ck, r.keys)
     if cached is not None:
         plan, est = cached
         t0 = time.perf_counter()
@@ -132,26 +134,33 @@ def _htm_join_pallas_adaptive(r: Relation, s: Relation,
         return m
     t0 = time.perf_counter()
     sniff_dev, chunk, k = sniff_enqueue(r.keys, cfg)        # no fence
-    guess = adaptive_guess_plan(cfg, probing=True)
+    with span("hj.plan"):
+        guess = adaptive_guess_plan(cfg, probing=True)
     res = enqueue_full_join(r.keys, s.keys, locality_window=guess.window,
                             presort=guess.presort, presorted=guess.presorted,
                             narrow=guess.narrow, sort_s=sort_s,
                             unique_both=unique_both)
-    matches_i, viols_i, flagged, out_sum, in_sum, mx, dups = torch.cat(
-        [torch.stack(res[:5]), sniff_dev]).tolist()         # the one readback
-    est = sniff_stats_dict(mx, dups, chunk, k)
-    window = dial_window(mx, chunk)
-    est["windowEstimate"] = None if window >= (1 << 30) else window
-    if viols_i or flagged:
+    # the one readback: the join's scalars and the sniff's statistics
+    matches_i, viols_i, flagged, out_sum, in_sum, mx, dups = readback(
+        torch.cat([torch.stack(res[:5]), sniff_dev]))
+    with span("hj.plan"):
+        est = sniff_stats_dict(mx, dups, chunk, k)
+        window = dial_window(mx, chunk)
+        est["windowEstimate"] = None if window >= (1 << 30) else window
+        aborted = bool(viols_i or flagged)
+        if aborted:
+            plan = pallas_plan(cfg, window_override=window)
+    if aborted:
         # abort -> the dialed repair run (the self-repairing pipeline
-        # handles its own overflow and mass replan)
-        plan = pallas_plan(cfg, window_override=window)
-        fresh = banded_join_pipelined(r.keys, s.keys,
-                                      locality_window=plan.window,
-                                      presort=plan.presort,
-                                      presorted=plan.presorted,
-                                      narrow=plan.narrow, sort_s=sort_s,
-                                      unique_both=unique_both)
+        # handles its own overflow and mass replan); its host work between
+        # its own spans, and the release of its buffers, is the plan's
+        with span("hj.plan"):
+            fresh = banded_join_pipelined(r.keys, s.keys,
+                                          locality_window=plan.window,
+                                          presort=plan.presort,
+                                          presorted=plan.presorted,
+                                          narrow=plan.narrow, sort_s=sort_s,
+                                          unique_both=unique_both)
         out = fresh._replace(violations=max(fresh.violations, viols_i),
                              resorted=True)
         # sustained timing measures the dialed plan: the guess miss stays
@@ -162,19 +171,21 @@ def _htm_join_pallas_adaptive(r: Relation, s: Relation,
         out = BandedJoinOutcome(matches_i, 0, 0, out_sum, False, in_sum)
         pipe_ref = out
     elapsed_us = (time.perf_counter() - t0) * 1e6
-    m = pallas_metrics(cfg, "htm", out, elapsed_us, out.matches, plan=plan,
-                       sort_s=sort_s)
-    _dial_remember(ck, r.keys, plan, est)
-    _adaptive_metrics(m, plan, est, False)
-    maybe_pipeline_timing(m, cfg, plan, r, s, pipe_ref)
+    with span("hj.line"):
+        m = pallas_metrics(cfg, "htm", out, elapsed_us, out.matches,
+                           plan=plan, sort_s=sort_s)
+        _dial_remember(ck, r.keys, plan, est)
+        _adaptive_metrics(m, plan, est, False)
+        maybe_pipeline_timing(m, cfg, plan, r, s, pipe_ref)
     return m
 
 
 def _htm_build_pallas_adaptive(cfg: JoinConfig, r: Relation) -> JoinMetrics:
     """Build-only fused dial: sniff and optimistic build share one readback
     (see _htm_join_pallas_adaptive)."""
-    ck = _dial_key(r, cfg, False)
-    cached = _dial_lookup(ck, r.keys)
+    with span("hj.plan"):
+        ck = _dial_key(r, cfg, False)
+        cached = _dial_lookup(ck, r.keys)
     if cached is not None:
         plan, est = cached
         t0 = time.perf_counter()
@@ -188,17 +199,20 @@ def _htm_build_pallas_adaptive(cfg: JoinConfig, r: Relation) -> JoinMetrics:
         return m
     t0 = time.perf_counter()
     sniff_dev, chunk, k = sniff_enqueue(r.keys, cfg)        # no fence
-    guess = adaptive_guess_plan(cfg, probing=False)
+    with span("hj.plan"):
+        guess = adaptive_guess_plan(cfg, probing=False)
     head = enqueue_banded_build(r.keys, locality_window=guess.window,
                                 presort=guess.presort,
                                 presorted=guess.presorted)
-    viols_i, out_sum, in_sum, mx, dups = torch.cat(
-        [head, sniff_dev]).tolist()                         # the one readback
-    est = sniff_stats_dict(mx, dups, chunk, k)
-    window = dial_window(mx, chunk)
-    est["windowEstimate"] = None if window >= (1 << 30) else window
+    viols_i, out_sum, in_sum, mx, dups = readback(
+        torch.cat([head, sniff_dev]))                       # the one readback
+    with span("hj.plan"):
+        est = sniff_stats_dict(mx, dups, chunk, k)
+        window = dial_window(mx, chunk)
+        est["windowEstimate"] = None if window >= (1 << 30) else window
+        if viols_i:
+            plan = pallas_plan(cfg, probing=False, window_override=window)
     if viols_i:
-        plan = pallas_plan(cfg, probing=False, window_override=window)
         fresh = banded_build_pipelined(r.keys, locality_window=plan.window,
                                        presort=plan.presort,
                                        presorted=plan.presorted)
@@ -245,6 +259,7 @@ def simulate_adaptive_tsize(chunk_fail, t0: int) -> list[int]:
     return out
 
 
+@join_scope
 def htm_join(r: Relation, s: Optional[Relation] = None,
              cfg: JoinConfig = JoinConfig()) -> JoinMetrics:
     if cfg.switch_sniff:
@@ -273,14 +288,14 @@ def _htm_scatter_join(r: Relation, s: Optional[Relation],
     failed, table_sum, in_sum = spill.head
     matches = None
     if skeys is not None:
-        matches = int(timer.timed("probe", _probe, table, skeys))
+        matches = readback(timer.timed("probe", _probe, table, skeys))
         matches += spill.probe_count(skeys, timer)
     m = JoinMetrics(algo="htm", rSize=cfg.r_size,
                     transactionSize=cfg.transaction_size,
                     probeLength=cfg.probe_length,
                     conflictCount=spill.count, failedTransactions=failed,
                     inputSum=in_sum, outputSum=table_sum + spill.key_sum)
-    cf = chunk_fail.tolist() if (cfg.track or cfg.adaptive) else []
+    cf = readback(chunk_fail) if (cfg.track or cfg.adaptive) else []
     if cfg.track:
         m.extra["chunkFailureFractions"] = cf[:64]
         m.extra["maxChunkFailureFraction"] = max(cf) if cf else 0.0
@@ -305,8 +320,10 @@ def _htm_switch_join(r: Relation, s: Optional[Relation],
 
     timer = PhaseTimer()
     dup_frac, max_key = sniff_statistics(r.keys, cfg, timer)
-    use_htm = dup_frac < 0.004 and max_key <= 3 * htm_num_buckets(cfg.r_size)
-    inner = dataclasses.replace(cfg, switch_sniff=False)
+    with span("hj.plan"):
+        use_htm = (dup_frac < 0.004
+                   and max_key <= 3 * htm_num_buckets(cfg.r_size))
+        inner = dataclasses.replace(cfg, switch_sniff=False)
     if use_htm:
         m = htm_join(r, s, inner)
     else:

@@ -26,9 +26,10 @@ from ..ops import insert, probe
 from ..ops.hashing import identity_hash
 from ..relation import Relation
 from ..utils.metrics import JoinMetrics
-from ..utils.timing import PhaseTimer
-from .common import (SpillState, finish_metrics, pallas_unique_join,
-                     resolve_relations, route_unique_pallas, table_size_for)
+from ..utils.timing import PhaseTimer, readback
+from .common import (SpillState, finish_metrics, join_scope,
+                     pallas_unique_join, resolve_relations,
+                     route_unique_pallas, table_size_for)
 
 
 def _build(keys: torch.Tensor, table_size: int, probe_length: int):
@@ -38,6 +39,7 @@ def _build(keys: torch.Tensor, table_size: int, probe_length: int):
             torch.sum(keys, dtype=torch.int64))
 
 
+@join_scope
 def nocc_join(r: Relation, s: Optional[Relation] = None,
               cfg: JoinConfig = JoinConfig()) -> JoinMetrics:
     if route_unique_pallas(cfg, s):
@@ -51,9 +53,9 @@ def nocc_join(r: Relation, s: Optional[Relation] = None,
     matches = None
     if skeys is not None:
         # the table only: the spilled conflicts are not probed
-        matches = int(timer.timed("probe", probe.probe_open_addressing,
-                                  table, skeys, cfg.probe_length,
-                                  identity_hash))
+        matches = readback(timer.timed(
+            "probe", probe.probe_open_addressing, table, skeys,
+            cfg.probe_length, identity_hash))
     m = JoinMetrics(algo="nocc", rSize=cfg.r_size,
                     transactionSize=cfg.transaction_size,
                     probeLength=cfg.probe_length, conflictCount=spill.count,

@@ -27,9 +27,9 @@ from ..ops import insert, probe
 from ..ops.hashing import identity_hash
 from ..relation import Relation, next_pow2
 from ..utils.metrics import JoinMetrics
-from ..utils.timing import PhaseTimer
+from ..utils.timing import PhaseTimer, readback
 from .banded_backend import banded_join_pipelined
-from .common import (SpillState, finish_metrics, keys_unique_both,
+from .common import (SpillState, finish_metrics, join_scope, keys_unique_both,
                      pallas_metrics, pallas_plan, resolve_relations,
                      use_pallas_engine)
 
@@ -43,6 +43,7 @@ def _build(keys: torch.Tensor, num_buckets: int):
             torch.sum(keys, dtype=torch.int64))
 
 
+@join_scope
 def npo_st_join(r: Relation, s: Optional[Relation] = None,
                 cfg: JoinConfig = JoinConfig()) -> JoinMetrics:
     """NPO_st, the reference's single-threaded NPO (mc/src/
@@ -54,6 +55,7 @@ def npo_st_join(r: Relation, s: Optional[Relation] = None,
     return m
 
 
+@join_scope
 def npo_join(r: Relation, s: Optional[Relation] = None,
              cfg: JoinConfig = JoinConfig()) -> JoinMetrics:
     if use_pallas_engine(cfg, s):
@@ -79,8 +81,9 @@ def npo_join(r: Relation, s: Optional[Relation] = None,
     table_sum, in_sum = spill.head
     matches = None
     if skeys is not None:
-        matches = int(timer.timed("probe", probe.probe_buckets, table, skeys,
-                                  BUCKET_SIZE, identity_hash))
+        matches = readback(timer.timed(
+            "probe", probe.probe_buckets, table, skeys, BUCKET_SIZE,
+            identity_hash))
         matches += spill.probe_count(skeys, timer)
     m = JoinMetrics(algo="npo", rSize=cfg.r_size,
                     transactionSize=cfg.transaction_size,

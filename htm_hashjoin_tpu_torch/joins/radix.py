@@ -35,13 +35,14 @@ from ..ops.radix_kernels import multipass_radix_partition
 from ..ops.sort_tiles import sort_tiles
 from ..relation import Relation
 from ..utils.metrics import JoinMetrics
-from ..utils.timing import PhaseTimer, fence_outputs
+from ..utils.profiler import span
+from ..utils.timing import PhaseTimer, fence_outputs, readback
 from .banded_backend import (DEFAULT_TILE, BandedBuild, _key_sum,
                              banded_join_pipelined, banded_probe,
                              sort_probe_side, to_tiles_pow2)
 from .common import (BandedPlan, _max_key_bound, finish_metrics,
-                     keys_unique_both, maybe_pipeline_timing, pallas_metrics,
-                     resolve_relations, use_pallas_engine)
+                     join_scope, keys_unique_both, maybe_pipeline_timing,
+                     pallas_metrics, resolve_relations, use_pallas_engine)
 
 # The multipass tile below 2^17 keys.  The JAX package takes 1024 there;
 # the port's count kernels need a tile larger than their 1024-key overhang
@@ -118,7 +119,7 @@ def _multipass_radix_join(r: Relation, s: Optional[Relation],
             skeys, s2d = sort_probe_side(skeys, tile=tile)
         matches, _overflow = banded_probe(build, skeys, s2d=s2d)
     t3 = time.perf_counter()
-    in_sum, out_sum, max_run = head.tolist()
+    in_sum, out_sum, max_run = readback(head)
     m = JoinMetrics(algo="radix", rSize=cfg.r_size,
                     transactionSize=cfg.transaction_size,
                     probeLength=cfg.probe_length,
@@ -141,6 +142,7 @@ def _multipass_radix_join(r: Relation, s: Optional[Relation],
     return m
 
 
+@join_scope
 def radix_join(r: Relation, s: Optional[Relation] = None,
                cfg: JoinConfig = JoinConfig()) -> JoinMetrics:
     """Radix join with cfg.radix_bits total fanout bits (NUM_RADIX_BITS=14,
@@ -149,29 +151,38 @@ def radix_join(r: Relation, s: Optional[Relation] = None,
 
     ``radix_strategy="multipass"`` runs the fanout-bounded multi-pass
     partition engine; "sort"/"auto" run the global-sort plans."""
-    if cfg.radix_strategy == "multipass" and cfg.backend != "xla":
+    with span("hj.plan"):
         # the banded probe counts keys below PACK_LIMIT only: wider keys
         # take the sort route below; build-only partitions any int32
-        if (s is None or not cfg.enable_probe
-                or _max_key_bound(cfg) < (1 << 29)):
-            return _multipass_radix_join(r, s, cfg)
-    if use_pallas_engine(cfg, s):
+        multipass = (cfg.radix_strategy == "multipass"
+                     and cfg.backend != "xla"
+                     and (s is None or not cfg.enable_probe
+                          or _max_key_bound(cfg) < (1 << 29)))
+        engine = not multipass and use_pallas_engine(cfg, s)
         # the global sort exists only to keep every tile's S band narrow;
         # a probe side within one tile bounds every band by |S| (the
         # reference's PRO benchmark shape, --s-size=2, motivation.sh:11)
-        presort = s.keys.numel() > DEFAULT_TILE
-        t0 = time.perf_counter()
-        out = banded_join_pipelined(r.keys, s.keys, presort=presort,
-                                    sort_s=not s.assume_sorted,
-                                    unique_both=keys_unique_both(cfg))
-        elapsed_us = (time.perf_counter() - t0) * 1e6
-        plan = BandedPlan(None, presort, False, None)
-        m = pallas_metrics(cfg, "radix", out, elapsed_us, out.matches,
-                           plan=plan, sort_s=not s.assume_sorted)
-        m.partitionTimeInMicroseconds = elapsed_us
-        m.extra["radixBits"] = cfg.radix_bits
-        m.extra["numPasses"] = cfg.radix_passes
-        maybe_pipeline_timing(m, cfg, plan, r, s, out)
+        presort = engine and s.keys.numel() > DEFAULT_TILE
+    if multipass:
+        return _multipass_radix_join(r, s, cfg)
+    if engine:
+        # the engine's host work between its own spans, the release of its
+        # buffers on return and the line are the planner's
+        with span("hj.plan"):
+            t0 = time.perf_counter()
+            out = banded_join_pipelined(r.keys, s.keys, presort=presort,
+                                        sort_s=not s.assume_sorted,
+                                        unique_both=keys_unique_both(cfg))
+            elapsed_us = (time.perf_counter() - t0) * 1e6
+            with span("hj.line"):
+                plan = BandedPlan(None, presort, False, None)
+                m = pallas_metrics(cfg, "radix", out, elapsed_us,
+                                   out.matches, plan=plan,
+                                   sort_s=not s.assume_sorted)
+                m.partitionTimeInMicroseconds = elapsed_us
+                m.extra["radixBits"] = cfg.radix_bits
+                m.extra["numPasses"] = cfg.radix_passes
+                maybe_pipeline_timing(m, cfg, plan, r, s, out)
         return m
     rkeys, skeys = resolve_relations(r, s, cfg)
     use_mk = cfg.backend != "xla" and rkeys.numel() >= (1 << 17)
@@ -188,7 +199,7 @@ def radix_join(r: Relation, s: Optional[Relation] = None,
         t0 = time.perf_counter()
         for _ in range(cfg.pipeline_depth):
             res = _partition_build(rkeys, cfg.radix_bits, use_mk)
-        res[2].tolist()
+        readback(res[2])
         per_point = (time.perf_counter() - t0) * 1e6 / cfg.pipeline_depth
         single_us = timer.micros.get("build", 0.0)
         timer.micros["build"] = per_point
@@ -196,7 +207,7 @@ def radix_join(r: Relation, s: Optional[Relation] = None,
     head = [in_sum, max_part.to(torch.int64), (hist > 4 * avg).sum()]
     if matches is not None:
         head.append(matches)
-    head = torch.stack(head).tolist()               # the one readback
+    head = readback(torch.stack(head))              # the one readback
     m = JoinMetrics(algo="radix", rSize=cfg.r_size,
                     transactionSize=cfg.transaction_size,
                     probeLength=cfg.probe_length,

@@ -31,11 +31,11 @@ from ..ops import sortops
 from ..ops.global_sort import global_sort_tiles
 from ..relation import Relation
 from ..utils.metrics import JoinMetrics
-from ..utils.timing import PhaseTimer, fence_outputs
+from ..utils.timing import PhaseTimer, fence_outputs, readback
 from .banded_backend import (DEFAULT_TILE, banded_join_pipelined,
                              sort_probe_side, to_tiles_pow2)
-from .common import (BandedPlan, keys_unique_both, pallas_metrics,
-                     resolve_relations, use_pallas_engine)
+from .common import (BandedPlan, join_scope, keys_unique_both,
+                     pallas_metrics, resolve_relations, use_pallas_engine)
 
 
 def _sort_keys(keys: torch.Tensor) -> torch.Tensor:
@@ -79,6 +79,7 @@ def _engine_join(r: Relation, s: Relation, cfg: JoinConfig) -> JoinMetrics:
     return m
 
 
+@join_scope
 def sortmerge_join(r: Relation, s: Optional[Relation] = None,
                    cfg: JoinConfig = JoinConfig()) -> JoinMetrics:
     if use_pallas_engine(cfg, s):
@@ -92,9 +93,9 @@ def sortmerge_join(r: Relation, s: Optional[Relation] = None,
         # distribution (main.cpp:89-97); sort unless it is certainly sorted
         if cfg.data_distr != Distribution.SORTED:
             skeys, _ = timer.timed("sort", _sort, skeys)
-        matches = int(timer.timed("merge", sortops.merge_count, sorted_r,
-                                  skeys))
-    in_sum = int(in_sum)
+        matches = readback(timer.timed("merge", sortops.merge_count,
+                                       sorted_r, skeys))
+    in_sum = readback(in_sum)
     m = JoinMetrics(algo="sortmerge", rSize=cfg.r_size,
                     transactionSize=cfg.transaction_size,
                     inputSum=in_sum, outputSum=in_sum)

@@ -12,6 +12,13 @@ import json
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
+from .profiler import span
+
+#: The line's fields of the port alone (the JAX package has neither): per
+#: join, the host's waits on the device and the keys K3 was given
+#: (``joins.common.join_scope``).
+PORT_ONLY_FIELDS = frozenset({"readbacks", "sortedKeys"})
+
 
 @dataclass
 class JoinMetrics:
@@ -48,20 +55,23 @@ class JoinMetrics:
     })
 
     def to_dict(self) -> Dict[str, Any]:
-        out: Dict[str, Any] = {}
-        for k, v in self.__dict__.items():
-            if k == "extra" or v is None:
-                continue
-            if self.algo in ("nocc", "atomic") and k in self._HTM_ONLY_FIELDS:
-                continue
-            # atomic/nocc name their spill count "conflicts"
-            # (AtomicHashBuild.hpp:143, NoCCHashBuild.hpp:137); htm says
-            # "conflictCount" (HTMHashBuild.hpp:437)
-            if k == "conflictCount" and self.algo in ("nocc", "atomic"):
-                k = "conflicts"
-            out[k] = v
-        out.update(self.extra)
-        return out
+        """The line in the reference schema (an ``hj.line`` span)."""
+        with span("hj.line"):
+            out: Dict[str, Any] = {}
+            for k, v in self.__dict__.items():
+                if k == "extra" or v is None:
+                    continue
+                if (self.algo in ("nocc", "atomic")
+                        and k in self._HTM_ONLY_FIELDS):
+                    continue
+                # atomic/nocc name their spill count "conflicts"
+                # (AtomicHashBuild.hpp:143, NoCCHashBuild.hpp:137); htm
+                # says "conflictCount" (HTMHashBuild.hpp:437)
+                if k == "conflictCount" and self.algo in ("nocc", "atomic"):
+                    k = "conflicts"
+                out[k] = v
+            out.update(self.extra)
+            return out
 
     def to_json_line(self) -> str:
         return json.dumps(self.to_dict())

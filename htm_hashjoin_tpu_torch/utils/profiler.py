@@ -27,7 +27,9 @@ here:
 
 ``trace()`` wraps torch.profiler: a Chrome trace of the host and, with a
 card present, its kernels, written into a directory (the reference's
-per-phase PCM dumps).
+per-phase PCM dumps).  ``span(name)`` marks a stretch of the join's host
+work in that trace (the ``hj.*`` spans, ``SPANS``), on the clock of the
+card's activity, and costs one flag read while no profiler records.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +210,45 @@ def shard_work_from_histogram(hist: np.ndarray, n_shards: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # Full traces
 # ---------------------------------------------------------------------------
+
+#: The port's spans, each a stretch of one join's host work.  They nest:
+#: a stretch belongs to the innermost span that covers it.
+SPANS = {
+    "hj.join": "a join step, its line included (the outermost call of a "
+               "joins.DISPATCH entry)",
+    "hj.sniff": "issuing a sniff's device chain",
+    "hj.plan": "the planner's host work: route, guess, dial, what to do "
+               "after a readback; on the adaptive and radix routes also the "
+               "engine call it made, between the engine's own spans",
+    "hj.enqueue": "issuing the join's device chain",
+    "hj.readback": "a host wait on the device, and its copy "
+                   "(timing.readback, timing.fence_outputs)",
+    "hj.retry": "the exact bitonic retry after an abort",
+    "hj.repair": "the batched recount of flagged tiles",
+    "hj.recount": "the mass path's tagged count of the whole join",
+    "hj.line": "building the join's line, and its dict in the reference "
+               "schema (JoinMetrics.to_dict, which its caller calls)",
+}
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A record function named ``name`` while a torch profiler records,
+    else a shared no-op context: with no profiler, a span reads one flag
+    and allocates nothing.  It records with torch's C++ form,
+    ``_RecordFunctionFast``, where torch has one: a ``cpu_op`` event in
+    the trace, at about a tenth of the cost of the Python class, whose
+    event is a ``user_annotation``."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _record_function(name)
+    return _NO_SPAN
+
+
+def _record_function(name: str):
+    fast = getattr(torch._C._profiler, "_RecordFunctionFast", None)
+    return fast(name) if fast else torch.profiler.record_function(name)
+
 
 @contextlib.contextmanager
 def trace(logdir: str):

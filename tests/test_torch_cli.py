@@ -14,6 +14,7 @@ import torch
 from htm_hashjoin_tpu import cli as jcli
 from htm_hashjoin_tpu_torch import cli
 from htm_hashjoin_tpu_torch.data.generators import build_relations
+from htm_hashjoin_tpu_torch.utils.metrics import PORT_ONLY_FIELDS
 from htm_hashjoin_tpu_torch.utils.validate import reference_match_count
 
 CPU = torch.device("cpu")
@@ -82,7 +83,7 @@ def test_cli_line_has_the_jax_keys_and_invariants(capsys, argv):
     N(N+1)/2, N matches) and PK x FK (s-size matches)."""
     got = run_line(capsys, argv, device=CPU)
     want = run_line(capsys, argv + ["--backend", "pallas"], main=jcli.main)
-    assert set(got) == set(want)
+    assert set(got) == set(want) | PORT_ONLY_FIELDS
     assert got["inputSum"] == got["outputSum"]
     cfg, _ = cli.parse_args(argv)
     permutation = cfg.data_distr.value in ("local_shuffle", "shuffle", "pk")
@@ -165,8 +166,10 @@ def test_backend_xla_line_equals_jax(capsys, argv):
     s = Relation(keys_from_numpy(js.keys), assume_sorted=js.assume_sorted)
     got = DISPATCH[cfg.algo.value](r, s, cfg).to_dict()
     assert "backend" not in got
-    assert {k: v for k, v in got.items() if "Time" not in k} == \
+    assert {k: v for k, v in got.items()
+            if "Time" not in k and k not in PORT_ONLY_FIELDS} == \
         {k: v for k, v in want.items() if "Time" not in k}
+    assert PORT_ONLY_FIELDS <= set(got)
     assert set(run_line(capsys, argv, device=CPU)) == set(got)
 
 

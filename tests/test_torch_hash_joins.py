@@ -43,6 +43,7 @@ from htm_hashjoin_tpu_torch.joins import DISPATCH
 from htm_hashjoin_tpu_torch.joins import common
 from htm_hashjoin_tpu_torch.ops import hashing, insert, probe, sortops
 from htm_hashjoin_tpu_torch.relation import Relation, keys_from_numpy
+from htm_hashjoin_tpu_torch.utils.metrics import PORT_ONLY_FIELDS
 from htm_hashjoin_tpu_torch.utils.timing import PhaseTimer
 from htm_hashjoin_tpu_torch.utils.validate import reference_match_count
 
@@ -383,7 +384,7 @@ def run_join(algo, dist, probing, **changes):
 
 
 def assert_join_line(algo, got, want, rk, sk, probing, engine):
-    assert set(got) == set(want)
+    assert set(got) == set(want) | PORT_ONLY_FIELDS
     for key in EQUAL:
         assert got.get(key) == want.get(key), key
     assert (got.get("backend") == "pallas_banded") == engine

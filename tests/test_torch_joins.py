@@ -33,6 +33,7 @@ from htm_hashjoin_tpu_torch.config import Algo, Distribution, JoinConfig
 from htm_hashjoin_tpu_torch.data.generators import build_relations
 from htm_hashjoin_tpu_torch.joins import adaptive, htm, radix
 from htm_hashjoin_tpu_torch.relation import Relation, keys_from_numpy
+from htm_hashjoin_tpu_torch.utils.metrics import PORT_ONLY_FIELDS
 from htm_hashjoin_tpu_torch.utils.validate import reference_match_count
 
 N = 1 << 14
@@ -123,7 +124,7 @@ def run_case(name):
 
 
 def assert_lines_agree(got, want):
-    assert set(got) == set(want)
+    assert set(got) == set(want) | PORT_ONLY_FIELDS
     for key in EQUAL:
         assert got.get(key) == want.get(key), key
     if "adaptivePlan" in want:
@@ -229,8 +230,10 @@ def test_htm_scatter_build_matches_jax(fields):
     want = jhtm.htm_join(jr, js if probing else None,
                          jax_cfg(cfg, backend="xla")).to_dict()
     assert "backend" not in got
-    assert {k: v for k, v in got.items() if "Time" not in k} == \
+    assert {k: v for k, v in got.items()
+            if "Time" not in k and k not in PORT_ONLY_FIELDS} == \
         {k: v for k, v in want.items() if "Time" not in k}
+    assert PORT_ONLY_FIELDS <= set(got)
     assert got["inputSum"] == got["outputSum"] == int(rk.astype(np.int64).sum())
     if probing:
         assert got["totalMatches"] == reference_match_count(rk, sk)
