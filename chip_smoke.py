@@ -40,9 +40,10 @@ Phases, one line each:
   6. path     - every other plan once at 2^27 keys a side (the heavy hitter
                 at 2^24): build-only with and without locality, wide band,
                 sort-first, the sort-first switch, the skewed probe with its
-                repair, the heavy hitter's tagged count; exact answers, each
-                kernel's launches (counts set to 0 just before each path, read
-                just after), the wall time and the peak device memory;
+                repair, the heavy hitter's in-place recount; exact answers,
+                each kernel's launches (counts set to 0 just before each
+                path, read just after), the wall time and the peak device
+                memory;
      profile  - each path that sorts with K2, K3 or K7 or counts with K4
                 (here, the multipass joins, in the CLI phase with its
                 relations already on the card, and once per Wisconsin conf
@@ -943,10 +944,10 @@ def _paths(dev, card, errs, times) -> dict:
     hot = torch.full((m,), 12345, dtype=torch.int32, device=dev)
     res = {}
     add(_run_path(
-        "heavy hitter 2^24 x 2^24 copies (presorted, tagged count)",
+        "heavy hitter 2^24 x 2^24 copies (presorted, in-place recount)",
         lambda: res.setdefault("out", bb.banded_join_pipelined(
             hot, hot, tile=TILE, presorted=True)),
-        {"global_sort_tiles": 1}, card))
+        {"banded_count": 2}, card))
     out = res["out"]
     _require(out.matches == m * m and out.resorted,
              f"heavy hitter: {out}")

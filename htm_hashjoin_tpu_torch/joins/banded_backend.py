@@ -16,7 +16,9 @@ Everything is enqueued on the device and the host reads one bundle back.
 Sortedness violations of an optimistic sorter retry the join with the exact
 bitonic sort (the HTM abort -> retry analog); tiles the count flags are
 recounted exactly in one batched repair (K3 + K4 with unbounded chunks);
-mass overflow replans (a global sort, or the skew-oblivious tagged count).
+mass overflow replans as sort-first, or, on a sorted plan, recounts the
+flagged tiles in place (a tile of one key from its band's ends, K4 over the
+others' whole bands; nothing sorted again).
 
 The JAX package's two-tier int32 accumulator certificate (``_acc_unsafe``,
 ``_max_run_length``) and its reroutes have no counterpart: K1, K4 and K5
@@ -30,7 +32,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..constants import LANES, MAXI32, OV_ROWS
+from ..constants import LANES, MAXI32, OV_ROWS, PACK_LIMIT
 from ..ops.banded_count import banded_count
 from ..ops.banded_count_narrow import banded_count_narrow
 from ..ops.fused_sort_count import fused_sort_count
@@ -200,6 +202,40 @@ def _check_status(status_max: int) -> None:
                          "prepare_probe_side for this tile")
 
 
+def _banded_total(r_sorted, s2d, row_off, n_chunks, tile: int,
+                  more=0) -> int:
+    """K4's count of the given bands, plus ``more`` (an int64 device
+    scalar), summed and read back once."""
+    with span("hj.enqueue"):
+        counts, status = banded_count(r_sorted, s2d, row_off, n_chunks,
+                                      tile=tile)
+        head = torch.stack([_sum_i64(counts) + more,
+                            status.max().to(torch.int64)])
+    head = readback(head)
+    _check_status(head[1])
+    return head[0]
+
+
+def _recount_in_place(sorted_flat, s2d, off, end, flags, tile: int) -> int:
+    """Exact count of a sorted plan's flagged tiles, which its first count
+    gave 0, from the bands [off, end) the plan holds.  A tile of one key
+    (its first key is its last) counts ``tile`` copies times the key's run
+    in S, ``end - off``; K4 counts the others over their whole bands.  An
+    S key lies in the bands of at most two tiles of more than one key, so
+    the work stays linear in R + S however one key piles up."""
+    with span("hj.enqueue"):
+        tiles = sorted_flat.view(-1, tile)
+        flagged = flags > 0
+        key = tiles[:, 0]
+        one_key = flagged & (key == tiles[:, -1]) & (key < PACK_LIMIT)
+        pairs = _sum_i64(torch.where(one_key, (end - off).to(torch.int64),
+                                     0)) * tile
+        row_off, rows_needed = _rows(off, end)
+        n_chunks = torch.where(flagged & ~one_key,
+                               _n_chunks(rows_needed, tile), 0)
+    return _banded_total(sorted_flat, s2d, row_off, n_chunks, tile, pairs)
+
+
 def _overflow_tile_matches(sorted_flat: torch.Tensor,
                            skeys_sorted: torch.Tensor,
                            bad_tiles: torch.Tensor, tile: int,
@@ -233,14 +269,8 @@ def _overflow_tile_matches(sorted_flat: torch.Tensor,
             mins, maxs, _ = tile_stats(bad_sorted, tile)
             row_off, rows_needed = _rows(*_slice_offsets(skeys_sorted, mins,
                                                          maxs))
-            counts, status = banded_count(bad_sorted, s2d, row_off,
-                                          _n_chunks(rows_needed, tile),
-                                          tile=tile)
-            head = torch.stack([_sum_i64(counts),
-                                status.max().to(torch.int64)])
-        head = readback(head)
-        _check_status(head[1])
-        return head[0]
+            n_chunks = _n_chunks(rows_needed, tile)
+        return _banded_total(bad_sorted, s2d, row_off, n_chunks, tile)
 
 
 # ---------------------------------------------------------------------------
@@ -421,8 +451,9 @@ def banded_join_pipelined(rkeys: torch.Tensor, skeys_sorted: torch.Tensor, *,
     abort (the violation count reported is the aborted run's).  Flagged
     tiles are recounted exactly by the batched repair.  Overflow on more
     than max(4, F/8) tiles means the plan was wrong for the data: an
-    unsorted plan replans as sort-first (the HTM_SWITCH analog), a sorted
-    one counts everything with the tagged sort.
+    unsorted plan replans as sort-first (the HTM_SWITCH analog); a sorted
+    one recounts its flagged tiles in place (``_recount_in_place``), R and
+    S being sorted already.
 
     ``presort`` sorts R globally first (data without locality);
     ``presorted`` takes R as already sorted; ``sort_s`` sorts an unsorted
@@ -464,9 +495,12 @@ def banded_join_pipelined(rkeys: torch.Tensor, skeys_sorted: torch.Tensor, *,
                                     s2d=s2d)
         return out._replace(violations=violations, overflow_tiles=overflow,
                             resorted=True)
-    if mass:                              # the mass path: count it all again
+    if mass:                              # the mass path: recount in place
+        # the first count gave the flagged tiles 0 (K4 was handed no chunk
+        # for them, K5 writes 0 where it flags)
         with span("hj.recount"):
-            matches = readback(tagged_count(rkeys, skeys_sorted, tile=tile))
+            matches += _recount_in_place(res[5], s2d, res[6], res[7],
+                                         res[8], tile)
         return BandedJoinOutcome(matches, violations, overflow, out_sum,
                                  True, in_sum)
     if overflow:                          # skew spill -> batched repair

@@ -225,7 +225,9 @@ SPANS = {
                    "(timing.readback, timing.fence_outputs)",
     "hj.retry": "the exact bitonic retry after an abort",
     "hj.repair": "the batched recount of flagged tiles",
-    "hj.recount": "the mass path's tagged count of the whole join",
+    "hj.recount": "the mass path's recount of a sorted plan's flagged "
+                  "tiles in place (a one-key tile from its band's ends, "
+                  "K4 over the others' whole bands)",
     "hj.line": "building the join's line, and its dict in the reference "
                "schema (JoinMetrics.to_dict, which its caller calls)",
 }

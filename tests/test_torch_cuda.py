@@ -522,6 +522,62 @@ def test_skewed_probe_and_builds_on_the_card(dev):
     assert int(bb.tagged_count(heavy, heavy, tile=8192)) == 1 << 40
 
 
+def zipf1_keys(n, alphabet, seed, dev):
+    """Zipf(1.0) draws over a permuted alphabet 1..alphabet: a float64
+    table of the cumulative distribution, a binary search a draw."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    weights = torch.arange(1, alphabet + 1, dtype=torch.float64,
+                           device=dev).reciprocal_()
+    cdf = torch.cumsum(weights, 0).div_(weights.sum())
+    keys = torch.randperm(alphabet, generator=gen, dtype=torch.int32,
+                          device=dev).add_(1)
+    u = torch.rand(n, generator=gen, dtype=torch.float64, device=dev)
+    return keys[torch.searchsorted(cdf, u).clamp_(max=alphabet - 1)]
+
+
+def test_mass_overflow_of_a_sorted_plan_recounts_in_place(dev):
+    """2^20 x 2^24 Zipf(1.0) sort-first: more than max(4, F/8) = 16 of 128
+    tiles flag, and one more K4 launch recounts them exactly, with no K3
+    key beyond R and S and within 10 % of the memory of the same join
+    whose bands all fit (``max_chunks`` past the widest band)."""
+    nr, ns = 1 << 20, 1 << 24
+    r = shuffled_keys(nr, 5, dev)
+    s = zipf1_keys(ns, nr, 6, dev)
+    r_sorted = torch.sort(r).values
+    want = int((torch.searchsorted(r_sorted, s, right=True)
+                - torch.searchsorted(r_sorted, s)).sum())
+    runs = []
+    for max_chunks in (bb.MAX_CHUNKS_DEFAULT, 256):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        k4, keys = bc.LAUNCHES, gs.SORTED_KEYS
+        out = bb.banded_join_pipelined(r, s, presort=True, sort_s=True,
+                                       max_chunks=max_chunks)
+        runs.append((out, bc.LAUNCHES - k4, gs.SORTED_KEYS - keys,
+                     torch.cuda.max_memory_allocated() - base))
+    (mass, k4_mass, keys_mass, peak_mass), (fit, k4_fit, keys_fit,
+                                            peak_fit) = runs
+    assert mass.overflow_tiles > 16 and mass.resorted
+    assert fit.overflow_tiles == 0 and not fit.resorted
+    assert mass.matches == fit.matches == want == ns
+    assert (k4_mass, k4_fit) == (2, 1)
+    assert keys_mass == keys_fit == nr + ns
+    assert abs(peak_mass - peak_fit) <= 0.1 * peak_fit
+
+
+def test_heavy_hitter_of_a_presorted_plan_counts_2_to_the_40(dev):
+    """One key in every row of R and S, 2^20 each: all 128 tiles flag and
+    the in-place recount counts 2^40 pairs from the bands' ends, each tile
+    holding one key, with a K4 launch that walks no chunk."""
+    heavy = torch.full((1 << 20,), 3, dtype=torch.int32, device=dev)
+    k4, keys = bc.LAUNCHES, gs.SORTED_KEYS
+    out = bb.banded_join_pipelined(heavy, heavy, presorted=True)
+    assert out.matches == 1 << 40 and out.overflow_tiles == 128
+    assert out.resorted and out.output_sum == out.input_sum == 3 << 20
+    assert bc.LAUNCHES - k4 == 2 and gs.SORTED_KEYS == keys
+
+
 @pytest.mark.parametrize("algo,fields", [
     ("nocc", dict(data_distr=Distribution.UNIFORM, distinct_keys=1 << 14)),
     ("nocc", dict(data_distr=Distribution.RANDOM)),

@@ -4,9 +4,8 @@ versions, on the paths of the benchmark's three cells at a small size
 (``joinbench.cells.load`` with smaller sizes, as ``joinbench/tests`` runs
 them), and on the two skew paths, which the small zipf cell does not
 reach: R 2^17 keys (16 tiles) and S 2^20 keys piled on R's first six
-tiles, which flag, over max(4, F/8): the mass path counts the join again
-with the tagged sort; or on its first two: the batched repair recounts
-them."""
+tiles, which flag, over max(4, F/8): the mass path recounts them in
+place with K4; or on its first two: the batched repair recounts them."""
 
 import gzip
 import glob
@@ -17,7 +16,8 @@ import torch
 
 from joinbench import cells, loop
 from htm_hashjoin_tpu_torch import cli
-from htm_hashjoin_tpu_torch.joins import DISPATCH, adaptive, htm
+from htm_hashjoin_tpu_torch.joins import (DISPATCH, adaptive, banded_backend,
+                                          htm)
 from htm_hashjoin_tpu_torch.joins.banded_backend import DEFAULT_TILE
 from htm_hashjoin_tpu_torch.ops import global_sort
 from htm_hashjoin_tpu_torch.relation import Relation
@@ -39,9 +39,9 @@ CASES = {
     "shuffle": ("adaptive_2e27.shuffle", 3, R, None),
     # at this size no tile flags: as fk_uniform
     "fk_zipf1": ("pro_2e24x2e28.fk_zipf1", 1, R + S, None),
-    # the fence, then the tagged count's readback; K3 also sorts the
-    # composite of R and S, padded to 2^21 keys
-    "mass": ("pro_2e24x2e28.fk_zipf1", 2, R + PILED_S + (1 << 21), 6),
+    # the fence, then the in-place recount's readback; K3 sorts no more
+    # than R and S
+    "mass": ("pro_2e24x2e28.fk_zipf1", 2, R + PILED_S, 6),
     # the fence, then the repair's readback; K3 also sorts the two
     # flagged tiles
     "repair": ("pro_2e24x2e28.fk_zipf1", 2, R + PILED_S + 2 * (1 << 13), 2),
@@ -160,6 +160,33 @@ def test_sorted_keys_are_the_keys_given_to_k3(name, monkeypatch):
     assert line["totalMatches"] == int(
         (torch.searchsorted(torch.sort(r.keys).values, s.keys, right=True)
          - torch.searchsorted(torch.sort(r.keys).values, s.keys)).sum())
+
+
+def test_the_mass_recount_is_one_more_k4_count_in_hj_recount(tmp_path,
+                                                            monkeypatch):
+    """The mass case's trace: K4 counts twice, the second time inside
+    ``hj.recount``, which holds no K3 sort."""
+    fn, r, s, cfg = join_case("mass")
+    real = banded_backend.banded_count
+
+    def k4(*args, **kwargs):
+        with torch.profiler.record_function("k4"):
+            return real(*args, **kwargs)
+
+    monkeypatch.setattr(banded_backend, "banded_count", k4)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn(r, s, cfg)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    (recount,) = [e for e in events if e["name"] == "hj.recount"]
+    counts = sorted((e for e in events if e["name"] == "k4"),
+                    key=lambda e: e["ts"])
+    assert [inside(e, recount) for e in counts] == [False, True]
+    sorts = [e for e in events if e["name"] == "aten::sort"]
+    assert sorts and not any(inside(e, recount) for e in sorts)
 
 
 def test_the_adaptive_join_is_one_scope(tmp_path):
