@@ -23,6 +23,7 @@ from ..ops import insert, probe
 from ..ops.hashing import identity_hash
 from ..relation import Relation
 from ..utils.metrics import JoinMetrics
+from ..utils.profiler import span
 from ..utils.timing import PhaseTimer, readback
 from .common import (SpillState, finish_metrics, join_scope,
                      pallas_unique_join, resolve_relations,
@@ -43,16 +44,18 @@ def atomic_join(r: Relation, s: Optional[Relation] = None,
         return pallas_unique_join("atomic", r, s, cfg)
     rkeys, skeys = resolve_relations(r, s, cfg)
     timer = PhaseTimer()
-    table, pending, table_sum, in_sum = timer.timed(
-        "build", _build, rkeys, table_size_for(cfg), cfg.probe_length)
-    spill = SpillState(rkeys, pending, timer, head=(table_sum, in_sum))
+    with span("hj.build"):
+        table, pending, table_sum, in_sum = timer.timed(
+            "build", _build, rkeys, table_size_for(cfg), cfg.probe_length)
+        spill = SpillState(rkeys, pending, timer, head=(table_sum, in_sum))
     table_sum, in_sum = spill.head
     matches = None
     if skeys is not None:
-        matches = readback(timer.timed(
-            "probe", probe.probe_open_addressing, table, skeys,
-            cfg.probe_length, identity_hash))
-        matches += spill.probe_count(skeys, timer)
+        with span("hj.probe"):
+            matches = readback(timer.timed(
+                "probe", probe.probe_open_addressing, table, skeys,
+                cfg.probe_length, identity_hash))
+            matches += spill.probe_count(skeys, timer)
     m = JoinMetrics(algo="atomic", rSize=cfg.r_size,
                     transactionSize=cfg.transaction_size,
                     probeLength=cfg.probe_length, conflictCount=spill.count,

@@ -55,12 +55,14 @@ _IN_STEP = False   # a join step (join_scope) is open
 
 def join_scope(join):
     """A ``joins.DISPATCH`` entry as one join step.  Its outermost call
-    opens the ``hj.join`` span and writes the step's two counters into its
-    line: ``readbacks``, the host's waits on the device
-    (``utils.timing.READBACKS``), and ``sortedKeys``, the keys K3 was given
-    (``ops.global_sort.SORTED_KEYS``), each read as a difference over the
-    step.  A call inside the step (``adaptive_join`` calls ``htm_join`` or
-    ``radix_join``) is part of it and opens nothing."""
+    opens the ``hj.join`` span and writes the step's three counters into
+    its line: ``readbacks``, the host's waits on the device
+    (``utils.timing.READBACKS``), ``sortedKeys``, the keys K3 was given
+    (``ops.global_sort.SORTED_KEYS``), and ``claimRows``, the rows handed
+    to the scatter builds' claim step (``ops.insert.CLAIM_ROWS``), each
+    read as a difference over the step.  A call inside the step
+    (``adaptive_join`` calls ``htm_join`` or ``radix_join``) is part of it
+    and opens nothing."""
     @functools.wraps(join)
     def step(*args, **kwargs):
         global _IN_STEP
@@ -68,11 +70,13 @@ def join_scope(join):
             return join(*args, **kwargs)
         _IN_STEP = True
         reads, keys = timing.READBACKS, global_sort.SORTED_KEYS
+        claims = insert.CLAIM_ROWS
         try:
             with span("hj.join"):
                 m = join(*args, **kwargs)
                 m.extra["readbacks"] = timing.READBACKS - reads
                 m.extra["sortedKeys"] = global_sort.SORTED_KEYS - keys
+                m.extra["claimRows"] = insert.CLAIM_ROWS - claims
                 return m
         finally:
             _IN_STEP = False
@@ -121,7 +125,10 @@ class SpillState:
     searches an R-sized array padded with INT32_MAX (ROADMAP queue 3,
     reference fault 8).  The probe searches the sorted spill for each S
     key (``sortops.merge_count``), where JAX re-sorts both as tagged
-    composites."""
+    composites.
+
+    Its callers, the four scatter joins, make it inside their ``hj.build``
+    span and call ``probe_count`` inside their ``hj.probe`` span."""
 
     def __init__(self, keys: torch.Tensor, pending: torch.Tensor,
                  timer: PhaseTimer, head=()):

@@ -280,16 +280,18 @@ def _htm_scatter_join(r: Relation, s: Optional[Relation],
     bounded displacement, so that cause is 0."""
     rkeys, skeys = resolve_relations(r, s, cfg)
     timer = PhaseTimer()
-    table, pending, failed, chunk_fail, table_sum, in_sum = timer.timed(
-        "build", _build, rkeys, htm_num_buckets(cfg.r_size), cfg.retry,
-        cfg.chunk_size)
-    spill = SpillState(rkeys, pending, timer,
-                       head=(failed, table_sum, in_sum))
+    with span("hj.build"):
+        table, pending, failed, chunk_fail, table_sum, in_sum = timer.timed(
+            "build", _build, rkeys, htm_num_buckets(cfg.r_size), cfg.retry,
+            cfg.chunk_size)
+        spill = SpillState(rkeys, pending, timer,
+                           head=(failed, table_sum, in_sum))
     failed, table_sum, in_sum = spill.head
     matches = None
     if skeys is not None:
-        matches = readback(timer.timed("probe", _probe, table, skeys))
-        matches += spill.probe_count(skeys, timer)
+        with span("hj.probe"):
+            matches = readback(timer.timed("probe", _probe, table, skeys))
+            matches += spill.probe_count(skeys, timer)
     m = JoinMetrics(algo="htm", rSize=cfg.r_size,
                     transactionSize=cfg.transaction_size,
                     probeLength=cfg.probe_length,

@@ -27,6 +27,7 @@ from ..ops import insert, probe
 from ..ops.hashing import identity_hash
 from ..relation import Relation, next_pow2
 from ..utils.metrics import JoinMetrics
+from ..utils.profiler import span
 from ..utils.timing import PhaseTimer, readback
 from .banded_backend import banded_join_pipelined
 from .common import (SpillState, finish_metrics, join_scope, keys_unique_both,
@@ -75,16 +76,19 @@ def npo_join(r: Relation, s: Optional[Relation] = None,
         return m
     rkeys, skeys = resolve_relations(r, s, cfg)
     timer = PhaseTimer()
-    table, pending, table_sum, in_sum = timer.timed(
-        "build", _build, rkeys, next_pow2(max(2, cfg.r_size // BUCKET_SIZE)))
-    spill = SpillState(rkeys, pending, timer, head=(table_sum, in_sum))
+    with span("hj.build"):
+        table, pending, table_sum, in_sum = timer.timed(
+            "build", _build, rkeys,
+            next_pow2(max(2, cfg.r_size // BUCKET_SIZE)))
+        spill = SpillState(rkeys, pending, timer, head=(table_sum, in_sum))
     table_sum, in_sum = spill.head
     matches = None
     if skeys is not None:
-        matches = readback(timer.timed(
-            "probe", probe.probe_buckets, table, skeys, BUCKET_SIZE,
-            identity_hash))
-        matches += spill.probe_count(skeys, timer)
+        with span("hj.probe"):
+            matches = readback(timer.timed(
+                "probe", probe.probe_buckets, table, skeys, BUCKET_SIZE,
+                identity_hash))
+            matches += spill.probe_count(skeys, timer)
     m = JoinMetrics(algo="npo", rSize=cfg.r_size,
                     transactionSize=cfg.transaction_size,
                     probeLength=cfg.probe_length, conflictCount=spill.count,

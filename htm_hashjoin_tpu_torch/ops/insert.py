@@ -68,6 +68,8 @@ from .hashing import locality_hash
 
 EMPTY = 0   # keys are >= 1 (generators emit 1..N); 0 marks an empty slot
 KEY_DTYPE = torch.int32
+CLAIM_ROWS = 0   # rows handed to the claim step, idle rows included (the
+                 # line's claimRows, joins.common.join_scope)
 
 HashFn = Callable[[torch.Tensor, int], torch.Tensor]
 
@@ -93,8 +95,10 @@ def _scatter_highest(table: torch.Tensor, claim: torch.Tensor,
     targeted slot's largest row index (earlier claims of the slot do not
     count), then only that row writes the slot and every other row writes
     its own spare slot, so no two writes share an index.  Idle rows
-    target their spare slot.  Returns the winning row of each row's
-    target (int32)."""
+    target their spare slot.  Counts every row in ``CLAIM_ROWS``.
+    Returns the winning row of each row's target (int32)."""
+    global CLAIM_ROWS
+    CLAIM_ROWS += keys.numel()
     spare = idx.to(torch.int64).add_(table.numel() - keys.numel())
     tgt = slot if active is None else torch.where(active, slot, spare)
     claim.scatter_reduce_(0, tgt, idx, "amax", include_self=False)

@@ -14,10 +14,10 @@ from typing import Any, Dict, Optional
 
 from .profiler import span
 
-#: The line's fields of the port alone (the JAX package has neither): per
-#: join, the host's waits on the device and the keys K3 was given
-#: (``joins.common.join_scope``).
-PORT_ONLY_FIELDS = frozenset({"readbacks", "sortedKeys"})
+#: The line's fields of the port alone (the JAX package has none of them):
+#: per join, the host's waits on the device, the keys K3 was given and the
+#: rows handed to the claim step (``joins.common.join_scope``).
+PORT_ONLY_FIELDS = frozenset({"readbacks", "sortedKeys", "claimRows"})
 
 
 @dataclass

@@ -228,6 +228,11 @@ SPANS = {
     "hj.recount": "the mass path's recount of a sorted plan's flagged "
                   "tiles in place (a one-key tile from its band's ends, "
                   "K4 over the others' whole bands)",
+    "hj.build": "a scatter build (ops/insert.py): its device chain and "
+                "fence, then the spill's readback and any compaction and "
+                "sort (joins.common.SpillState)",
+    "hj.probe": "a scatter build's probe: the table probe and its fence, "
+                "the spill's probe, and their readbacks",
     "hj.line": "building the join's line, and its dict in the reference "
                "schema (JoinMetrics.to_dict, which its caller calls)",
 }

@@ -2,9 +2,12 @@
 card's activity, every device-to-host copy of a join lies inside an
 ``hj.readback`` span, every host wait on the device inside a join goes
 through the helper (``utils.timing``), and the line's ``readbacks`` is the
-count of those waits.  On the paths of the benchmark's three cells at sizes
+count of those waits.  On the paths of the benchmark's four cells at sizes
 a test run holds (``joinbench`` makes the relations), and on the mass path
 and the batched repair (S piled on R's first six tiles, of 16 and of 128).
+On the hash cell's path (the atomic table), every device operation of the
+join lies inside ``hj.build`` or ``hj.probe``, which the benchmark's two
+hash-table rooflines read.
 
 Needs a CUDA device and nvcc; elsewhere every test skips.  The file
 imports no jax:
@@ -44,6 +47,8 @@ CASES = {
     "repair": ("pro_2e24x2e28.fk_zipf1",
                ["-r", str(1 << 20), "-s", str(1 << 23)], 2, 6),
 }
+# the hash cell's path, the atomic table (its own test, below)
+HASH = ("hashjoin_2e27.shuffle", ["--rSize", str(1 << 20)], 4, None)
 
 
 @pytest.fixture
@@ -54,7 +59,7 @@ def dev():
 
 
 def pair(name, index, dev):
-    cell_name, argv, _, piled = CASES[name]
+    cell_name, argv, _, piled = HASH if name == "hash" else CASES[name]
     cell = cells.load(cell_name, argv)
     r, s = loop.Inputs(cell, SEED, dev).pair(index)
     if piled:
@@ -119,3 +124,50 @@ def test_readbacks_on_the_card_are_the_copies_and_waits(dev, name,
         assert want is None or line["readbacks"] == want
         if CASES[name][3]:
             assert line["conflictCount"] == CASES[name][3]
+
+
+def test_the_hash_tables_device_work_lies_in_its_build_and_probe(dev,
+                                                                 tmp_path):
+    """The atomic table (the hash cell's path): every device operation of
+    the join in ``hj.build`` or ``hj.probe``, and its four waits (the
+    build's fence and the spill's readback, the probe's fence and its
+    readback) in ``hj.readback`` spans.  Two of those spans lie within a
+    copy's slack of each other here, so a copy is held to lie in one at
+    least."""
+    fn, r, s, cfg = pair("hash", 2, dev)
+    fn(r, s, cfg)                       # warms up
+    del r, s
+    fn, r, s, cfg = pair("hash", 0, dev)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        line = fn(r, s, cfg).to_dict()
+        torch.cuda.synchronize(dev)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "ts" in e]
+    (join,) = [e for e in events if e["name"] == "hj.join"]
+    (build,) = [e for e in events if e["name"] == "hj.build"]
+    (probe,) = [e for e in events if e["name"] == "hj.probe"]
+    ops = [e for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+           and within(e["ts"], join)]
+    # on the device's clock, inside the host's spans (with the slack of a
+    # copy: a few ops at the seam lie within it of both)
+    in_build = [covers(build, e, SLACK_US) for e in ops]
+    in_probe = [covers(probe, e, SLACK_US) for e in ops]
+    assert any(in_build) and any(in_probe)
+    assert all(map(max, in_build, in_probe))
+    readbacks = [e for e in events if e["name"] == "hj.readback"]
+    copies = [e for e in ops if e["name"].startswith("Memcpy DtoH")]
+    waits = [e for e in events if e.get("cat") == "cuda_runtime"
+             and e["name"] in WAITS and within(e["ts"], join)]
+    syncs = [w for w in waits if w["name"] == "cudaDeviceSynchronize"]
+    assert all(any(covers(b, w) for b in readbacks) for w in waits)
+    assert all(any(covers(b, c, SLACK_US) for b in readbacks)
+               for c in copies)
+    assert len(copies) + len(syncs) == len(readbacks) == line["readbacks"]
+    assert line["readbacks"] == HASH[2]
+    assert line["totalMatches"] == 1 << 20 and line["claimRows"] == 4 << 20

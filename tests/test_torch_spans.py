@@ -1,11 +1,14 @@
-"""The port's spans (``hj.*``, ``utils/profiler.span``) and its two per-join
-counters (``readbacks``, ``sortedKeys``) on the CPU, with the kernels' plain
-versions, on the paths of the benchmark's three cells at a small size
-(``joinbench.cells.load`` with smaller sizes, as ``joinbench/tests`` runs
-them), and on the two skew paths, which the small zipf cell does not
-reach: R 2^17 keys (16 tiles) and S 2^20 keys piled on R's first six
-tiles, which flag, over max(4, F/8): the mass path recounts them in
-place with K4; or on its first two: the batched repair recounts them."""
+"""The port's spans (``hj.*``, ``utils/profiler.span``) and its three
+per-join counters (``readbacks``, ``sortedKeys``, ``claimRows``) on the CPU,
+with the kernels' plain versions, on the paths of the benchmark's four cells
+at a small size (``joinbench.cells.load`` with smaller sizes, as
+``joinbench/tests`` runs them), on the two skew paths, which the small zipf
+cell does not reach: R 2^17 keys (16 tiles) and S 2^20 keys piled on R's
+first six tiles, which flag, over max(4, F/8): the mass path recounts them
+in place with K4; or on its first two: the batched repair recounts them;
+and on the four scatter-build joins (nocc, atomic, npo, htm's scatter
+route), whose build and probe are the ``hj.build`` and ``hj.probe``
+spans."""
 
 import gzip
 import glob
@@ -17,9 +20,9 @@ import torch
 from joinbench import cells, loop
 from htm_hashjoin_tpu_torch import cli
 from htm_hashjoin_tpu_torch.joins import (DISPATCH, adaptive, banded_backend,
-                                          htm)
+                                          htm, npo)
 from htm_hashjoin_tpu_torch.joins.banded_backend import DEFAULT_TILE
-from htm_hashjoin_tpu_torch.ops import global_sort
+from htm_hashjoin_tpu_torch.ops import global_sort, insert
 from htm_hashjoin_tpu_torch.relation import Relation
 from htm_hashjoin_tpu_torch.utils import profiler, timing
 from htm_hashjoin_tpu_torch.utils.metrics import PORT_ONLY_FIELDS, JoinMetrics
@@ -27,11 +30,15 @@ from htm_hashjoin_tpu_torch.utils.metrics import PORT_ONLY_FIELDS, JoinMetrics
 CPU = torch.device("cpu")
 SEED = 2**31 + 7
 SMALL = {"adaptive_2e27": ["--rSize", str(1 << 17)],
-         "pro_2e24x2e28": ["-r", str(1 << 17), "-s", str(1 << 19)]}
+         "pro_2e24x2e28": ["-r", str(1 << 17), "-s", str(1 << 19)],
+         "hashjoin_2e27": ["--rSize", str(1 << 17)]}
 R, S = 1 << 17, 1 << 19
 PILED_S = 1 << 20
 # (cell, readbacks, sortedKeys, R's tiles S is piled on) of each path
 CASES = {
+    # the build's fence and the spill's readback, the probe's fence and
+    # its readback; no K3 (the claim rounds: claimRows, below)
+    "atomic": ("hashjoin_2e27.shuffle", 4, 0, None),
     # K3 sorts S and R, K4 counts, one readback
     "fk_uniform": ("pro_2e24x2e28.fk_uniform", 1, R + S, None),
     # the sniff's readback, the fused dial's (the guess aborts), the
@@ -125,8 +132,9 @@ def test_spans_nest_in_one_join_span_and_readbacks_match(name, tmp_path):
                    key=lambda e: e["ts"])
     assert len(joins) == len(lines) == 2
     assert {e["name"] for e in events} <= set(profiler.SPANS)
-    assert {"hj.readback", "hj.enqueue", "hj.plan", "hj.line"} <= \
-        {e["name"] for e in events}
+    path = ({"hj.build", "hj.probe"} if name == "atomic"
+            else {"hj.enqueue", "hj.plan"})
+    assert {"hj.readback", "hj.line"} | path <= {e["name"] for e in events}
     for e in events:
         assert sum(inside(e, j) for j in joins) == 1, e
     for j, line in zip(joins, lines):
@@ -255,3 +263,68 @@ def test_a_span_while_recording_is_a_named_event(fast, monkeypatch,
         m.to_dict()                     # the line's dict is an hj.line
     assert [e["name"] for e in hj_events(prof, tmp_path)] == ["hj.plan",
                                                              "hj.line"]
+
+
+# the scatter-build joins at |R| = |S| = 2^14 (R shuffled, S sorted: the
+# hash cell's traffic), and the rows each hands to the claim step per R
+# row: probeLength rounds (atomic, nocc), npo's BUCKET_SIZE rounds, htm's
+# optimistic scatter and three retry rounds (one without retry)
+SCATTER_R = 1 << 14
+SCATTER = {
+    "atomic": (["--algo", "atomic"], 4),
+    "nocc": (["--algo", "nocc"], 4),
+    "npo": (["--algo", "npo"], npo.BUCKET_SIZE),
+    "npo_st": (["--algo", "npo_st"], npo.BUCKET_SIZE),
+    "htm": (["--algo", "htm"], 1 + 3),
+    "htm_noretry": (["--algo", "htm", "--noRetry"], 1),
+}
+
+
+def scatter_case(name, index=0):
+    cell = cells.load("hashjoin_2e27.shuffle", [
+        "--rSize", str(SCATTER_R), *SCATTER[name][0]])
+    assert cell.cfg.backend == "xla" and cell.cfg.probe_length == 4
+    r, s = loop.Inputs(cell, SEED, CPU).pair(index)
+    return DISPATCH[cell.cfg.algo.value], r, s, cell.cfg
+
+
+@pytest.mark.parametrize("name", ["nocc", "atomic", "npo", "htm"])
+def test_scatter_joins_build_and_probe_in_their_own_spans(name, tmp_path):
+    """hj.build and hj.probe once each, one after the other inside
+    hj.join, and every readback of the join inside one of them (the
+    build's fence and the spill's readback; the probe's fence and its
+    readback)."""
+    fn, r, s, cfg = scatter_case(name)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        line = fn(r, s, cfg).to_dict()
+    events = hj_events(prof, tmp_path)
+    assert {e["name"] for e in events} <= set(profiler.SPANS)
+    (join,) = [e for e in events if e["name"] == "hj.join"]
+    (build,) = [e for e in events if e["name"] == "hj.build"]
+    (probe,) = [e for e in events if e["name"] == "hj.probe"]
+    assert inside(build, join) and inside(probe, join)
+    assert build["ts"] + build["dur"] <= probe["ts"]
+    readbacks = [e for e in events if e["name"] == "hj.readback"]
+    assert [sum(inside(e, p) for e in readbacks)
+            for p in (build, probe)] == [2, 2] == [len(readbacks) // 2] * 2
+    assert line["readbacks"] == 4 and line["totalMatches"] == SCATTER_R
+
+
+@pytest.mark.parametrize("name", list(SCATTER))
+def test_claim_rows_count_every_row_of_every_claim_round(name):
+    fn, r, s, cfg = scatter_case(name)
+    before = insert.CLAIM_ROWS
+    line = fn(r, s, cfg).to_dict()
+    assert line["claimRows"] == SCATTER[name][1] * SCATTER_R
+    assert insert.CLAIM_ROWS - before == line["claimRows"]
+    assert line["inputSum"] == line["outputSum"]
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_claim_rows_on_the_cells_paths(name):
+    """4 |R| on the hash cell (four rounds over every row, though every
+    unique key places in the first); none on the banded engine's."""
+    fn, r, s, cfg = join_case(name)
+    line = fn(r, s, cfg).to_dict()
+    assert line["claimRows"] == (4 * R if name == "atomic" else 0)
