@@ -66,7 +66,13 @@ Phases, one line each:
                 radix on the engine's sort plan and on the sort route (held
                 to a torch.unique count), mc PRO (PK x FK), htm --switchSniff
                 -> radix; each line's counts, sums, path and kernels checked;
- 10. hash       - the hash-table joins and sortmerge: at 2^22 through
+ 10. hash       - the claim-round kernel (csrc/claim_insert.cu) against
+                its plain version (the torch claim rounds) on duplicates
+                with key 0 at budgets 1, 4 and 6, exactly, then at the hash
+                cell's build (2^27 shuffled keys into 2^28 slots) at budgets
+                4 (reported) and 6, held equal and timed, and split by
+                launch under the profiler; the hash-table
+                joins and sortmerge: at 2^22 through
                 DISPATCH, nocc, atomic and htm with --backend xla on
                 sorted, shuffle and uniform keys (2^20 distinct), build-only
                 and probing, npo_st on PK x FK and nocc on random keys, each
@@ -81,8 +87,9 @@ Phases, one line each:
                 line held to an exact count (n, the s-size, or a
                 torch.unique count), conservation (nocc: outputSum and
                 matches at most the exact ones), zero conflicts on unique
-                keys and the plan's launches of every kernel (none on a
-                scatter build), with a profile of each scatter-build path;
+                keys and the plan's launches of every kernel (one claim
+                kernel build on each scatter build but nocc's and htm's
+                without retry), with a profile of each scatter-build path;
  11. wisconsin  - K7 (the key-value radix sort) against its plain version
                 (stable sort + gather) on few-tile cases (one tile, two, 2^3
                 padded, 16 copies a key, rotation-packed keys with shard
@@ -135,7 +142,8 @@ Phases, one line each:
                 CPU's; reference fault 9 at
                 2^22 (R key 0, S key INT32_MAX) exact; dryrun_multichip(8);
                 the scaling sweep at its defaults, every point exact;
- 14. experiments - entry() (the single-device entry step: no kernel) on the
+ 14. experiments - entry() (the single-device entry step: one claim
+                kernel build, its retry rounds) on the
                 card equal to the CPU's and to (2^16, 2^16 (2^16 + 1) / 2, 0),
                 and
                 ``python -m htm_hashjoin_tpu_torch.entry``'s main; the
@@ -203,11 +211,13 @@ from htm_hashjoin_tpu_torch.ops import banded_count_narrow as bcn
 from htm_hashjoin_tpu_torch.ops import fused_sort_count as fsc
 from htm_hashjoin_tpu_torch.ops import global_sort as gs
 from htm_hashjoin_tpu_torch.ops import global_sort_kv as gkv
+from htm_hashjoin_tpu_torch.ops import insert
 from htm_hashjoin_tpu_torch.ops import radix_kernels as rk
 from htm_hashjoin_tpu_torch.ops import scatter_tiles as sct
 from htm_hashjoin_tpu_torch.ops import sort_kv_tiles as skv
 from htm_hashjoin_tpu_torch.ops import sort_tiles as st
 from htm_hashjoin_tpu_torch.ops import tile_minmax as tmm
+from htm_hashjoin_tpu_torch.ops.hashing import identity_hash
 from htm_hashjoin_tpu_torch.parallel import scaling
 from htm_hashjoin_tpu_torch.parallel.dist_join import distributed_join
 from htm_hashjoin_tpu_torch.parallel.dryrun import dryrun_multichip
@@ -237,6 +247,7 @@ KERNELS = {
     "scatter_tiles": (sct, "scatter_tiles.cu", f"{RADIX_KERNELS}:348"),
     "sort_kv_tiles": (skv, "sort_kv_tiles.cu", f"{JOIN_KERNELS}:561"),
     "global_sort_kv_tiles": (gkv, "radix_sort.cu", f"{JOIN_KERNELS}:701"),
+    "claim_insert": (insert, "claim_insert.cu", "none: XLA scatter"),
 }
 # kernels on no path, each with the reason: held to their plain versions
 # and timed, but exempt from the check that a path launched them
@@ -1217,36 +1228,88 @@ def _hash_lines_equal_the_cpu(dev) -> None:
     torch.cuda.empty_cache()
 
 
-def _hash_joins(dev, card) -> dict:
-    """The hash-table joins and sortmerge: the card against the CPU at
-    2^22, then the reference's own points at 2^27 through cli.main, each
-    line checked (exact matches, conservation or nocc's inequalities,
-    conflicts on unique keys, every kernel's launches), with a profile of
-    each scatter-build path."""
+def _check_claim_insert(dev, card, errs, times) -> None:
+    """The claim-round kernel against its plain version (the torch claim
+    rounds, ``insert.open_addressing_build_ref``, on the card): duplicates
+    with key 0 (EMPTY) among them, row 0's key included, at budgets 1, 4
+    and 6, exactly; then the hash cell's build, 2^27 shuffled keys into
+    2^28 slots under the identity hash, held equal and timed at budget 4
+    (the packed word; reported) and 6 (two launches a round; printed, not
+    reported), and the budget-4 build split by launch under the
+    profiler."""
+    m = 1 << 20
+    keys = _duplicates(m, dev, 41)
+    keys[::97] = 0
+    for budget in (1, 4, 6):
+        args = (keys, m, budget, identity_hash)
+        got = insert.open_addressing_build(*args)
+        want = insert.open_addressing_build_ref(*args)
+        err = max(_err(g, w) for g, w in zip(got, want))
+        errs["claim_insert"] = max(errs["claim_insert"], err)
+        print(f"kernel: claim_insert 2^20 duplicates with key 0, budget "
+              f"{budget}: spilled {int(want[1].sum())}, max_abs_err={err}")
+        _require(not err, f"the claim kernel differs from its plain version "
+                 f"on key 0 at budget {budget}")
+    del keys, got, want
+    n = 1 << LOG2_N
+    keys = shuffled_keys(n, 1, dev)
+    before = insert.LAUNCHES
+    for budget, keep in ((4, True), (6, False)):
+        args = (keys, 2 * n, budget, identity_hash)
+        _time_pair("claim_insert", f"2^{LOG2_N} shuffled keys into "
+                   f"2^{LOG2_N + 1} slots, budget {budget}",
+                   lambda: insert.open_addressing_build(*args),
+                   lambda: insert.open_addressing_build_ref(*args), errs,
+                   times, card, (keys,), keep=keep)
+    times["claim_insert"]["kernel_phase_launches"] = insert.LAUNCHES - before
+    args = (keys, 2 * n, 4, identity_hash)
+    ops = _device_ops(lambda: insert.open_addressing_build(*args))
+    print(f"kernel: claim_insert build at 2^{LOG2_N} budget 4, one profiled "
+          f"call: {sum(t for _, t in ops):.4f} ms busy in {len(ops)} ops: "
+          f"{', '.join(f'{name} {t:.4f}' for name, t in ops)} [{card}]")
+    print(f"kernel: claim_insert builds in its kernel phase "
+          f"{insert.LAUNCHES - before} [{card}]")
+    del keys
+    torch.cuda.empty_cache()
+
+
+def _hash_joins(dev, card, errs, times) -> dict:
+    """The claim kernel against its plain version; the hash-table joins
+    and sortmerge: the card against the CPU at 2^22, then the reference's
+    own points at 2^27 through cli.main, each line checked (exact matches,
+    conservation or nocc's inequalities, conflicts on unique keys, every
+    kernel's launches), with a profile of each scatter-build path."""
+    _check_claim_insert(dev, card, errs, times)
     _hash_lines_equal_the_cpu(dev)
     n = 1 << LOG2_N
     total = dict.fromkeys(KERNELS, 0)
     build_only = ["--noProbe", "--noRetry", "--probeLength", "4",
                   "--backend", "xla"]
     runs = []     # (argv, launches, a scatter build or the plain route)
+    # the claim kernel builds atomic's table, npo's buckets and htm's retry
+    # rounds (none with --noRetry); nocc's rounds are torch ops
+    claims = {"nocc": {}, "atomic": {"claim_insert": 1},
+              "htm": {"claim_insert": 1}}
     for algo in ("nocc", "atomic", "htm"):       # AtomicsVsHTMVsNoCC
         for dist in ("sorted", "shuffle"):
             runs.append((["--algo", algo, "--dataDistr", dist,
                           "--transactionSize",
                           "1" if algo == "htm" else "16", *build_only],
-                         {}, True))
+                         {} if algo == "htm" else claims[algo], True))
     for algo in ("nocc", "atomic", "htm"):       # probe.sh's first point
         runs.append((["--algo", algo, "--backend", "xla", "--dataDistr",
-                      "local_shuffle", "--shuffleRange", "16"], {}, True))
+                      "local_shuffle", "--shuffleRange", "16"],
+                     claims[algo], True))
     for algo in ("nocc", "atomic"):              # duplicates, 2^24 distinct
         runs.append((["--algo", algo, "--dataDistr", "uniform",
-                      "--distinctKeys", str(n >> 3)], {}, True))
+                      "--distinctKeys", str(n >> 3)], claims[algo], True))
     runs += [
         (["--algo", "htm", "--dataDistr", "uniform", "--distinctKeys",
           str(n >> 3)], {"global_sort_tiles": 1, "banded_count": 1}, False),
         (["--algo", "NPO", "-r", str(n), "-s", str(n)],
          {"global_sort_tiles": 2, "banded_count_narrow": 1}, False),
-        (["--algo", "NPO_st", "-r", str(n), "-s", str(n)], {}, True),
+        (["--algo", "NPO_st", "-r", str(n), "-s", str(n)],
+         {"claim_insert": 1}, True),
         (["--algo", "sortmerge", "--dataDistr", "shuffle"],
          {"global_sort_tiles": 1, "banded_count_narrow": 1}, False),
         (["--algo", "sortmerge", "--dataDistr", "random"],
@@ -1575,7 +1638,8 @@ def _counters_runs(dev, card, rate, total) -> None:
                 str(n)]
     scatter = ["--algo", "atomic", "--backend", "xla", "--noProbe",
                "--dataDistr", "shuffle", "--rSize", str(n)]
-    for argv, expect in ((headline, {"fused_sort_count": 1}), (scatter, {})):
+    for argv, expect in ((headline, {"fused_sort_count": 1}),
+                         (scatter, {"claim_insert": 1})):
         argv = argv + ["--counters", "--throughput"]
         res = {}
         counts = _run_path(f"cli {' '.join(argv)}",
@@ -1975,13 +2039,14 @@ def _distributed_small(dev, card, total) -> None:
 
 
 def _entry_step(dev, card, total) -> None:
-    """entry() on the card against the CPU's and the expected numbers (no
-    kernel runs on it), then ``python -m htm_hashjoin_tpu_torch.entry``'s
+    """entry() on the card against the CPU's and the expected numbers (the
+    claim kernel its only kernel, once, for the retry rounds), then ``python -m htm_hashjoin_tpu_torch.entry``'s
     main: the step and dryrun_multichip(8) under a mapping of its own."""
     fn, args = entry(dev)
     res = {}
+    expect = {"claim_insert": 1}      # the retry rounds, nothing else
     counts = _run_path("entry() 2^16", lambda: res.setdefault(
-        "out", tuple(int(x) for x in fn(*args))), {}, card)
+        "out", tuple(int(x) for x in fn(*args))), expect, card)
     for k, v in counts.items():
         total[k] += v
     cpu_fn, cpu_args = entry("cpu")
@@ -1990,7 +2055,8 @@ def _entry_step(dev, card, total) -> None:
     want = (n, n * (n + 1) // 2, 0)
     print(f"experiments: entry() on the card {res['out']}, on the CPU {cpu}, "
           f"expected {want} (matches, outputSum, failed inserts) [{card}]")
-    _require(res["out"] == cpu == want and not any(counts.values()),
+    _require(res["out"] == cpu == want and
+             all(v == expect.get(k, 0) for k, v in counts.items()),
              f"entry(): card {res['out']}, CPU {cpu}, expected {want}, "
              f"launches {counts}")
     entry_main()
@@ -2234,7 +2300,8 @@ def main() -> int:
     # joins, K7 and the Wisconsin multijoin, the measurement layer, the
     # distributed join, then entry() and the experiments
     for more in (_radix(dev, card, errs, times), _cli_paths(dev, card),
-                 _hash_joins(dev, card), _wisconsin(dev, card, errs, times),
+                 _hash_joins(dev, card, errs, times),
+                 _wisconsin(dev, card, errs, times),
                  _measurement(dev, card), _distributed(dev, card),
                  _experiments(dev, card)):
         for k, v in more.items():

@@ -9,8 +9,9 @@ prints the step's three numbers, then runs ``dryrun_multichip(8)`` with
 eight shards wrapped onto the visible cards by a device-mapping file, as
 the JAX file's ``__main__`` runs both.
 
-The step is torch glue (the JAX package leaves it to XLA): no kernel of
-``csrc/`` runs on it.  JAX's ``unique_keys=True`` only picks its
+The step is torch glue (the JAX package leaves it to XLA) but for the
+build's retry rounds, which on the card run the claim kernel
+(``csrc/claim_insert.cu``) once.  JAX's ``unique_keys=True`` only picks its
 claim-free insert round; on unique keys the claim-round build of
 ``ops/insert.py`` gives the same table.
 """

@@ -4,11 +4,12 @@ Counterpart of ``htm_hashjoin_tpu/joins/atomic.py`` (reference
 AtomicHashBuild.hpp:14-157: an open-addressing table of atomics, inserts by
 compare_exchange with budget ``probeLength``, an exhausted budget spilling
 to a conflicts array).  Here ``probe_length`` claim rounds
-(``insert.claim_insert_round``) are the CAS steps of all pending tuples at
-once; the spill is a sorted, probed array, so no match is lost (the
-reference's probe ignored its conflicts).  Conservation holds: outputSum =
-the table's sum + the conflicts' (AtomicHashBuild.hpp:90-152).  On
-generator-certified unique keys the banded engine runs instead
+(``insert.open_addressing_build``: a CUDA kernel a round on the card,
+``insert.claim_insert_round`` on the CPU) are the CAS steps of all pending
+tuples at once; the spill is a sorted, probed array, so no match is lost
+(the reference's probe ignored its conflicts).  Conservation holds:
+outputSum = the table's sum + the conflicts' (AtomicHashBuild.hpp:90-152).
+On generator-certified unique keys the banded engine runs instead
 (``common.pallas_unique_join``).
 """
 

@@ -116,6 +116,8 @@ def load_library() -> ctypes.CDLL:
         "htm_scatter_tiles": [p, p, p, p, i64, i, i, i, p],
         "htm_sort_kv_tiles": [p, p, p, p, i, i, i, p],
         "htm_radix_sort_pairs": [p, p, p, p, p, p, p, i64, i64, p],
+        "htm_claim_insert": [p, p, i, i64, i64, i, i, p, p, i64, p, i64, p,
+                             p, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -123,6 +125,8 @@ def load_library() -> ctypes.CDLL:
         fn.restype = i
     lib.htm_radix_sort_scratch_words.argtypes = [i64]
     lib.htm_radix_sort_scratch_words.restype = i64
+    lib.htm_claim_insert_scratch_words.argtypes = [i64, i64, i]
+    lib.htm_claim_insert_scratch_words.restype = i64
     lib.htm_cuda_error_string.argtypes = [i]
     lib.htm_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -56,6 +56,17 @@ unique keys nearly every row is idle, and their atomicMax on one address
 serialise on the card (a region of 1024 spare slots still made the idle
 rounds cost more than all the rest of the build).  Row indices are int32
 (the claim table's entries), slots int64.
+
+**On CUDA tensors the claim rounds run a kernel** (``csrc/claim_insert.cu``,
+one launch a round): ``open_addressing_build``'s, ``bucket_build``'s and
+the retry rounds of ``htm_optimistic_build``, each through the slot rule
+its call fixes ((h + j) & mask, or h * S + j in S-slot buckets).  The
+torch formulation above is the kernel's plain version and runs on CPU
+tensors (``open_addressing_build_ref`` runs it on any device); the table
+and ``pending`` are equal bit for bit, with no spare slot and no R-sized
+int64 vector on the card.  nocc's rounds (every attempter leaves
+``pending``) and htm's optimistic scatter keep ``_scatter_highest`` on
+every device: their semantics differ.
 """
 
 from __future__ import annotations
@@ -64,12 +75,18 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from .hashing import locality_hash
+from . import _args, _build
+from .hashing import identity_hash, locality_hash
 
 EMPTY = 0   # keys are >= 1 (generators emit 1..N); 0 marks an empty slot
 KEY_DTYPE = torch.int32
 CLAIM_ROWS = 0   # rows handed to the claim step, idle rows included (the
                  # line's claimRows, joins.common.join_scope)
+LAUNCHES = 0   # builds whose claim rounds ran the kernel (the plain path
+               # adds none)
+# hashes the kernel computes itself (its hash kind); it is handed any other
+# hash's values as int32
+_KERNEL_HASHES = {identity_hash: 1, locality_hash: 2}
 
 HashFn = Callable[[torch.Tensor, int], torch.Tensor]
 
@@ -152,13 +169,65 @@ def _insert_rounds(table, claim, keys, slots, pending):
     return table, pending
 
 
+def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
+    return None if x is None else x.data_ptr()
+
+
+def _kernel_rounds(fn: str, keys: torch.Tensor, hash_fn: HashFn, mask: int,
+                   stride: int, rounds: int, size: int,
+                   pending: Optional[torch.Tensor] = None,
+                   seed: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The claim rounds on the card (``csrc/claim_insert.cu``): ``rounds``
+    rounds of the slot rule (h + j) & mask (``stride`` 0) or h * stride + j
+    into a table of ``size`` slots, h = ``hash_fn(keys, mask)`` in
+    [0, mask], for the rows of ``pending`` (all if None), around the keys
+    of ``seed`` (``size`` slots, 0 empty) if given.  Counts n rows a round
+    in ``CLAIM_ROWS``.  Returns (table, pending)."""
+    global LAUNCHES, CLAIM_ROWS
+    dev = _args.int32_vectors(fn, keys=keys)
+    n = keys.numel()
+    if size > 1 << 31 or n >= 1 << 31:
+        raise ValueError(f"{fn}: the kernel takes at most 2^31 slots and "
+                         f"2^31 - 1 keys, got {size} and {n}")
+    kind = _KERNEL_HASHES.get(hash_fn, 0)
+    hvec = (None if kind else
+            hash_fn(keys, mask).to(torch.int32).contiguous())
+    words = _build.load_library().htm_claim_insert_scratch_words(n, size,
+                                                                 kind)
+    scratch = torch.empty(words, dtype=torch.int64, device=dev)
+    table = torch.empty(size, dtype=KEY_DTYPE, device=dev)
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    _args.launch(fn, "htm_claim_insert", dev, keys.data_ptr(), _ptr(hvec),
+                 kind, n, mask, stride, rounds, _ptr(pending), _ptr(seed),
+                 size, scratch.data_ptr(), words, table.data_ptr(),
+                 out.data_ptr())
+    LAUNCHES += 1
+    CLAIM_ROWS += n * rounds
+    return table, out
+
+
 def open_addressing_build(keys: torch.Tensor, table_size: int,
                           probe_length: int, hash_fn: HashFn
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Linear probing with a probe budget (AtomicHashBuild.hpp:37-67):
     round j tries slot (h+j) & mask.  After ``probe_length`` rounds (at
     most table_size: more would rescan slots) the residual ``pending`` is
-    the conflicts set.  Returns (table, pending)."""
+    the conflicts set.  Returns (table, pending): the kernel's on CUDA
+    tensors, the plain version's (``open_addressing_build_ref``) on CPU
+    tensors."""
+    if _args.runs_kernel("open_addressing_build", keys.device):
+        return _kernel_rounds("open_addressing_build", keys, hash_fn,
+                              table_size - 1, 0,
+                              min(probe_length, table_size), table_size)
+    return open_addressing_build_ref(keys, table_size, probe_length, hash_fn)
+
+
+def open_addressing_build_ref(keys: torch.Tensor, table_size: int,
+                              probe_length: int, hash_fn: HashFn
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of ``open_addressing_build`` (any device): the
+    claim rounds over a table and a claim table with the spare slots."""
     n, dev, mask = keys.numel(), keys.device, table_size - 1
     h = hash_fn(keys, mask).to(torch.int64)
     table, pending = _insert_rounds(
@@ -182,8 +251,11 @@ def bucket_build(keys: torch.Tensor, num_buckets: int, slots: int,
     HTM's Bucket{tuples[3]} (HTMHashBuild.hpp:41-45) with S=3, NPO's
     2-tuple buckets (mc/src/npj_types.h:31-37) with S=2.  Overflow
     (``pending`` after S rounds) is the overflow-chain analog.  Returns
-    (table, pending)."""
+    (table, pending), the kernel's on CUDA tensors."""
     size, n, dev = num_buckets * slots, keys.numel(), keys.device
+    if _args.runs_kernel("bucket_build", dev):
+        return _kernel_rounds("bucket_build", keys, hash_fn, num_buckets - 1,
+                              slots, slots, size)
     table, pending = _insert_rounds(
         _table(size, n, dev), _claims(size, n, dev), keys,
         _bucket_slots(keys, num_buckets, slots, hash_fn),
@@ -208,7 +280,8 @@ def htm_optimistic_build(keys: torch.Tensor, num_buckets: int, *,
     ``failed_optimistic`` is the failedTransactions statistic
     (HTMHashBuild.hpp:188-191).  Phase 3 (TM_RETRY,
     HTMHashBuild.hpp:219-278): claim rounds place failures into free slots
-    of their bucket; the residue spills."""
+    of their bucket; the residue spills (the kernel's rounds on CUDA
+    tensors, around phase 1's table)."""
     n, size = keys.numel(), num_buckets * 3
     dev = keys.device
     slot = (locality_hash(keys, num_buckets - 1).to(torch.int64) * 3
@@ -218,6 +291,11 @@ def htm_optimistic_build(keys: torch.Tensor, num_buckets: int, *,
     failed = _scatter_highest(table, claim, slot, None, keys, idx) != idx
     if not retry:
         return OptimisticBuildResult(table[:size], failed, failed)
+    if _args.runs_kernel("htm_optimistic_build", dev):
+        table, pending = _kernel_rounds(
+            "htm_optimistic_build", keys, locality_hash, num_buckets - 1, 3,
+            3, size, pending=failed, seed=table[:size])
+        return OptimisticBuildResult(table, pending, failed)
     table, pending = _insert_rounds(
         table, claim, keys,
         _bucket_slots(keys, num_buckets, 3, locality_hash), failed)

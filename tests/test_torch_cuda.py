@@ -39,6 +39,7 @@ from htm_hashjoin_tpu_torch.ops import banded_count_narrow as bcn
 from htm_hashjoin_tpu_torch.ops import fused_sort_count as fsc
 from htm_hashjoin_tpu_torch.ops import global_sort as gs
 from htm_hashjoin_tpu_torch.ops import global_sort_kv as gkv
+from htm_hashjoin_tpu_torch.ops import hashing, insert
 from htm_hashjoin_tpu_torch.ops import radix_kernels as rk
 from htm_hashjoin_tpu_torch.ops import radix_sort as rs
 from htm_hashjoin_tpu_torch.ops import scatter_tiles as sct
@@ -607,6 +608,150 @@ def test_scatter_builds_on_the_card_equal_the_cpu(dev, algo, fields):
     assert "backend" not in got
     assert {k: v for k, v in got.items() if "Time" not in k} == \
         {k: v for k, v in want.items() if "Time" not in k}
+
+
+def claim_keys(kind, n, dev, seed=0):
+    """Build keys for the claim rounds: a permutation of 1..n; the same
+    with row 0's key 0 (EMPTY); uniform draws over 1..2^14, or over
+    0..2^14 with row 0's key 0 too; or nonzero draws over all of int32."""
+    if kind == "shuffled":
+        return shuffled_keys(n, seed, dev)
+    if kind == "zero_first":
+        keys = shuffled_keys(n, seed, dev)
+        keys[0] = 0
+        return keys
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    if kind in ("uniform", "zeros"):
+        keys = torch.randint(int(kind == "uniform"), (1 << 14) + 1, (n,),
+                             generator=gen, device=dev, dtype=torch.int32)
+        if kind == "zeros":
+            keys[0] = 0
+        return keys
+    keys = torch.randint(-(1 << 31), 1 << 31, (n,), generator=gen,
+                         device=dev, dtype=torch.int64).to(torch.int32)
+    return torch.where(keys == 0, 1, keys)
+
+
+def murmur_hash(keys, mask):
+    return hashing.murmur32(keys) & mask
+
+
+def assert_claims_equal_the_cpu(build, keys, rounds, *args):
+    """``build(keys, *args)`` on the card: one kernel build with n rows a
+    round in ``CLAIM_ROWS``, and every output equal to the CPU's torch
+    claim rounds, bit for bit."""
+    launches, rows = insert.LAUNCHES, insert.CLAIM_ROWS
+    got = build(keys, *args)
+    torch.cuda.synchronize()
+    assert insert.LAUNCHES == launches + 1
+    assert insert.CLAIM_ROWS - rows == rounds * keys.numel()
+    want = build(keys.cpu(), *args)
+    assert insert.LAUNCHES == launches + 1
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.dtype == w.dtype
+        assert torch.equal(g.cpu(), w)
+    return got
+
+
+@pytest.mark.parametrize("kind,n,size,budget,hash_fn", [
+    ("shuffled", 1 << 20, 1 << 21, 4, hashing.identity_hash),   # the cell's
+    ("uniform", 1 << 20, 1 << 21, 4, hashing.identity_hash),
+    ("shuffled", 3 * 1024 + 5, 1 << 11, 4, hashing.identity_hash),
+    ("uniform", (1 << 18) - 77, 1 << 17, 4, hashing.identity_hash),
+    ("shuffled", 1 << 18, 1 << 19, 4, murmur_hash),
+    ("uniform", (1 << 18) + 3, 1 << 18, 4, murmur_hash),
+    ("signed", (1 << 18) - 1, 1 << 18, 4, hashing.identity_hash),
+    ("signed", 1 << 18, 1 << 17, 3, hashing.locality_hash),
+    ("uniform", 1 << 18, 1 << 19, 1, hashing.identity_hash),
+    ("uniform", (1 << 18) + 9, 1 << 18, 6, hashing.identity_hash),
+    ("shuffled", 1 << 20, 1 << 19, 6, murmur_hash),
+    ("uniform", 100, 4, 6, hashing.identity_hash),
+    ("zero_first", (1 << 16) + 3, 1 << 17, 1, hashing.identity_hash),
+    ("zero_first", 1 << 16, 1 << 17, 4, hashing.identity_hash),
+    ("zeros", 1 << 18, 1 << 19, 4, hashing.identity_hash),
+    ("zeros", (1 << 18) - 3, 1 << 17, 1, hashing.identity_hash),
+    ("zeros", 1 << 18, 1 << 18, 4, murmur_hash),
+    ("zeros", (1 << 18) + 1, 1 << 18, 6, hashing.identity_hash)])
+def test_claim_kernel_open_addressing_equals_the_plain_rounds(
+        dev, kind, n, size, budget, hash_fn):
+    """The open-addressing build's table and pending mask, kernel against
+    the plain torch rounds: the cell's shape at 2^20, slots with many
+    attempters, tables of next_pow2(n) / 2 that spill, the murmur hash,
+    ragged n, signed keys, budgets 1 and 4 (the packed word) and 6 (two
+    launches a round), a budget cut to the table's 4 slots, and key 0
+    (EMPTY): placed, it leaves its slot empty for later rounds, and row
+    0's key 0 places in the last round."""
+    keys = claim_keys(kind, n, dev, seed=n % 97)
+    table, pending = assert_claims_equal_the_cpu(
+        insert.open_addressing_build, keys, min(budget, size), size, budget,
+        hash_fn)
+    if kind in ("uniform", "zeros") or size < n:
+        assert 0 < int(pending.sum()) < n
+    elif kind == "shuffled" and hash_fn is hashing.identity_hash:
+        assert int(pending.sum()) == 0 and int((table != 0).sum()) == n
+    elif kind == "zero_first":
+        assert int(pending.sum()) == 0 and int((table != 0).sum()) == n - 1
+
+
+@pytest.mark.parametrize("kind,n,slots,shrink,hash_fn", [
+    ("shuffled", 1 << 18, 2, 1, hashing.identity_hash),          # npo
+    ("uniform", (1 << 18) - 5, 2, 4, hashing.identity_hash),
+    ("uniform", 1 << 18, 3, 1, hashing.locality_hash),
+    ("signed", (1 << 18) + 1, 3, 2, hashing.locality_hash),
+    ("uniform", 1 << 18, 5, 2, hashing.identity_hash),           # 2 launches
+    ("shuffled", 1 << 18, 4, 8, murmur_hash),
+    ("zeros", 1 << 18, 2, 4, hashing.identity_hash),
+    ("zeros", (1 << 18) + 7, 3, 2, hashing.locality_hash)])
+def test_claim_kernel_buckets_equal_the_plain_rounds(dev, kind, n, slots,
+                                                     shrink, hash_fn):
+    """``bucket_build`` through the kernel's bucket slot rule h * S + j:
+    npo's 2-slot buckets, 3-slot buckets under the locality hash, 4 slots
+    (the packed word's last class) and 5 (two launches a round), into
+    n // 2 // shrink buckets; key 0 among the keys."""
+    keys = claim_keys(kind, n, dev, seed=slots)
+    nb = 1 << ((n // 2 // shrink).bit_length() - 1)
+    assert_claims_equal_the_cpu(insert.bucket_build, keys, slots, nb, slots,
+                                hash_fn)
+
+
+@pytest.mark.parametrize("kind", ["shuffled", "uniform", "wrapped",
+                                  "signed", "zeros"])
+def test_claim_kernel_htm_retry_equals_the_plain_rounds(dev, kind):
+    """The HTM build's retry rounds through the kernel, seeded with the
+    optimistic scatter's table (the seeded word's class above the three
+    rounds): table, pending and failed masks equal the CPU's, on unique
+    keys, duplicates, keys that wrap the buckets, signed keys and
+    duplicates with key 0."""
+    n = (1 << 18) + 11
+    keys = (claim_keys("shuffled", n, dev) * 3 if kind == "wrapped"
+            else claim_keys(kind, n, dev, seed=5))
+    nb = 1 << (n // 3).bit_length()
+    launches, rows = insert.LAUNCHES, insert.CLAIM_ROWS
+    got = insert.htm_optimistic_build(keys, nb, retry=True)
+    torch.cuda.synchronize()
+    assert insert.LAUNCHES == launches + 1
+    assert insert.CLAIM_ROWS - rows == 4 * n
+    want = insert.htm_optimistic_build(keys.cpu(), nb, retry=True)
+    assert insert.LAUNCHES == launches + 1
+    for field in ("table", "pending", "failed_optimistic"):
+        assert torch.equal(getattr(got, field).cpu(), getattr(want, field))
+    if kind != "shuffled":
+        assert int(want.failed_optimistic.sum()) > 0
+
+
+def test_atomic_join_runs_the_claim_kernel(dev):
+    """The hash cell's path at 2^20 (``--algo atomic --backend xla`` on
+    shuffled keys): one kernel build, claimRows 4 n, and the CPU's line."""
+    cfg = JoinConfig(algo=Algo.ATOMIC, r_size=1 << 20, backend="xla",
+                     data_distr=Distribution.SHUFFLE)
+    r, s = build_relations(cfg, dev)
+    before = insert.LAUNCHES
+    got = DISPATCH["atomic"](r, s, cfg).to_dict()
+    assert insert.LAUNCHES == before + 1
+    assert got["claimRows"] == 4 * cfg.r_size
+    assert got["totalMatches"] == cfg.r_size
+    assert got["inputSum"] == got["outputSum"]
 
 
 def scatter_case(keys, tile, fanout, shift, align=False):

@@ -234,7 +234,8 @@ def test_launch_counts_since():
     assert set(before) == {"fused_sort_count", "sort_tiles",
                            "global_sort_tiles", "banded_count",
                            "banded_count_narrow", "scatter_tiles",
-                           "sort_kv_tiles", "global_sort_kv_tiles"}
+                           "sort_kv_tiles", "global_sort_kv_tiles",
+                           "claim_insert"}
     assert launches_since(before) == {}
     before["sort_tiles"] -= 2
     assert launches_since(before) == {"sort_tiles": 2}

@@ -173,12 +173,17 @@ def test_claim_insert_round_matches_jax(kind):
 
 @pytest.mark.parametrize("kind,unique", BUILDS)
 def test_open_addressing_build_matches_jax(kind, unique):
+    """On CPU tensors the torch claim rounds run (the claim kernel's plain
+    version): no kernel build counted, n rows a round in ``CLAIM_ROWS``."""
     n = 1 << 13
     keys = keys_of(kind, n, seed=3)
     t, j = both(keys)
     for table_size, probe_length in ((2 * n, 4), (n, 2), (n // 2, 8)):
+        launches, rows = insert.LAUNCHES, insert.CLAIM_ROWS
         got = insert.open_addressing_build(t, table_size, probe_length,
                                            hashing.identity_hash)
+        assert insert.LAUNCHES == launches
+        assert insert.CLAIM_ROWS - rows == probe_length * n
         want = jinsert.open_addressing_build(j, table_size, probe_length,
                                              jhashing.identity_hash,
                                              unique_keys=unique)
@@ -190,12 +195,16 @@ def test_open_addressing_build_matches_jax(kind, unique):
 def test_bucket_build_matches_jax(kind, unique, slots):
     """npo's 2-slot buckets take keys k and k + num_buckets into one slot
     in one round: the highest row wins on both sides.  The second build,
-    into a quarter of the buckets, overflows most keys."""
+    into a quarter of the buckets, overflows most keys.  The torch rounds
+    run on CPU tensors: no kernel build, n rows a round in ``CLAIM_ROWS``."""
     n = 1 << 13
     keys = keys_of(kind, n, seed=4)
     t, j = both(keys)
     nb = n // 2
+    launches, rows = insert.LAUNCHES, insert.CLAIM_ROWS
     got = insert.bucket_build(t, nb, slots, hashing.identity_hash)
+    assert insert.LAUNCHES == launches
+    assert insert.CLAIM_ROWS - rows == slots * n
     want = jinsert.bucket_build(j, nb, slots, jhashing.identity_hash,
                                 unique_keys=unique)
     assert_build_equal(got, want, keys)
@@ -213,13 +222,17 @@ def test_htm_optimistic_build_matches_jax(kind, unique, retry):
     """Table, pending and failed masks, and the per-chunk failure fractions
     (float32, exact), on dense keys, duplicates, full-range keys, and
     unique keys that wrap the buckets (k and k + 3 * num_buckets share a
-    slot)."""
+    slot).  On CPU tensors the retry's torch rounds run: no kernel build;
+    ``CLAIM_ROWS`` counts the scatter's n rows and n a retry round."""
     n = 1 << 13
     keys = (keys_of("unique", n, seed=5) * 3 if kind == "wrapped"
             else keys_of(kind, n, seed=5))
     t, j = both(keys)
     nb = common.htm_num_buckets(n)
+    launches, rows = insert.LAUNCHES, insert.CLAIM_ROWS
     got = insert.htm_optimistic_build(t, nb, retry=retry)
+    assert insert.LAUNCHES == launches
+    assert insert.CLAIM_ROWS - rows == (4 if retry else 1) * n
     want = jinsert.htm_optimistic_build(j, nb, retry=retry,
                                         unique_keys=unique)
     assert eq(got.table, want.table)
