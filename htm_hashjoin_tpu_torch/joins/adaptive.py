@@ -18,6 +18,7 @@ is not dense.  The thresholds are the reference's adaptive ones
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -27,7 +28,7 @@ from ..config import JoinConfig
 from ..relation import Relation
 from ..utils.metrics import JoinMetrics
 from ..utils.profiler import span
-from ..utils.timing import PhaseTimer, readback
+from ..utils.timing import readback
 from .common import htm_num_buckets, join_scope
 from .htm import htm_join
 from .radix import radix_join
@@ -50,28 +51,28 @@ def _sniff(keys: torch.Tensor, num_partitions: int, chunk: int):
                         sample.amax().to(torch.int64)])
 
 
-def sniff_statistics(keys: torch.Tensor, cfg: JoinConfig, timer: PhaseTimer):
-    """(duplicate fraction, max key) of the sniff sample, in one readback;
-    the ``sniff`` phase times it from the enqueue to the answer.  The
-    fraction is the float32 mean of the JAX package, taken on the host
-    from the exact counts."""
+def sniff_statistics(keys: torch.Tensor, cfg: JoinConfig):
+    """(duplicate fraction, max key, microseconds) of the sniff sample, in
+    one readback, timed from the enqueue to the answer (the line's
+    firstRoundTime).  The fraction is the float32 mean of the JAX package,
+    taken on the host from the exact counts."""
     chunk = min(cfg.sniff_rounds * cfg.sniff_chunk,
                 max(1, SNIFF_TARGET // max(1, cfg.num_partitions)))
-    with timer.phase("sniff"):
-        with span("hj.sniff"):
-            stats = _sniff(keys, cfg.num_partitions, chunk)
-        dups, max_key = readback(stats)
+    t0 = time.perf_counter()
+    with span("hj.sniff"):
+        stats = _sniff(keys, cfg.num_partitions, chunk)
+    dups, max_key = readback(stats)
+    sniff_us = (time.perf_counter() - t0) * 1e6
     part = max(1, keys.numel() // cfg.num_partitions)
     pairs = cfg.num_partitions * min(chunk, part) - 1
     dup_frac = np.float32(dups) / np.float32(pairs) if pairs else np.nan
-    return float(dup_frac), int(max_key)
+    return float(dup_frac), int(max_key), sniff_us
 
 
 @join_scope
 def adaptive_join(r: Relation, s: Optional[Relation] = None,
                   cfg: JoinConfig = JoinConfig()) -> JoinMetrics:
-    timer = PhaseTimer()
-    dup_frac, max_key = sniff_statistics(r.keys, cfg, timer)
+    dup_frac, max_key, sniff_us = sniff_statistics(r.keys, cfg)
     # the chosen join's host work between its own spans and the line are
     # the planner's
     with span("hj.plan"):
@@ -80,7 +81,7 @@ def adaptive_join(r: Relation, s: Optional[Relation] = None,
         m = (htm_join if use_htm else radix_join)(r, s, cfg)
         with span("hj.line"):
             m.algo = "adaptive"
-            m.firstRoundTime = timer.micros.get("sniff", 0.0)
+            m.firstRoundTime = sniff_us
             m.firstRoundFailureFraction = dup_frac
             m.extra["chosenPath"] = "htm" if use_htm else "radix"
             m.extra["sniffMaxKey"] = max_key

@@ -10,7 +10,7 @@ tuples at once; the spill is a sorted, probed array, so no match is lost
 (the reference's probe ignored its conflicts).  Conservation holds:
 outputSum = the table's sum + the conflicts' (AtomicHashBuild.hpp:90-152).
 On generator-certified unique keys the banded engine runs instead
-(``common.pallas_unique_join``).
+(``common.engine_join``).
 """
 
 from __future__ import annotations
@@ -24,41 +24,23 @@ from ..ops import insert, probe
 from ..ops.hashing import identity_hash
 from ..relation import Relation
 from ..utils.metrics import JoinMetrics
-from ..utils.profiler import span
-from ..utils.timing import PhaseTimer, readback
-from .common import (SpillState, finish_metrics, join_scope,
-                     pallas_unique_join, resolve_relations,
-                     route_unique_pallas, table_size_for)
-
-
-def _build(keys: torch.Tensor, table_size: int, probe_length: int):
-    table, pending = insert.open_addressing_build(
-        keys, table_size, probe_length, identity_hash)
-    return (table, pending, probe.table_sum(table),
-            torch.sum(keys, dtype=torch.int64))
+from .common import (engine_join, join_scope, route_unique_pallas,
+                     scatter_join, table_size_for, unique_table_fields)
 
 
 @join_scope
 def atomic_join(r: Relation, s: Optional[Relation] = None,
                 cfg: JoinConfig = JoinConfig()) -> JoinMetrics:
     if route_unique_pallas(cfg, s):
-        return pallas_unique_join("atomic", r, s, cfg)
-    rkeys, skeys = resolve_relations(r, s, cfg)
-    timer = PhaseTimer()
-    with span("hj.build"):
-        table, pending, table_sum, in_sum = timer.timed(
-            "build", _build, rkeys, table_size_for(cfg), cfg.probe_length)
-        spill = SpillState(rkeys, pending, timer, head=(table_sum, in_sum))
-    table_sum, in_sum = spill.head
-    matches = None
-    if skeys is not None:
-        with span("hj.probe"):
-            matches = readback(timer.timed(
-                "probe", probe.probe_open_addressing, table, skeys,
-                cfg.probe_length, identity_hash))
-            matches += spill.probe_count(skeys, timer)
-    m = JoinMetrics(algo="atomic", rSize=cfg.r_size,
-                    transactionSize=cfg.transaction_size,
-                    probeLength=cfg.probe_length, conflictCount=spill.count,
-                    inputSum=in_sum, outputSum=table_sum + spill.key_sum)
-    return finish_metrics(m, timer, matches)
+        return engine_join("atomic", r, s, cfg,
+                           fields=unique_table_fields)
+
+    def build(keys: torch.Tensor):
+        return insert.open_addressing_build(
+            keys, table_size_for(cfg), cfg.probe_length, identity_hash)
+
+    def probe_table(table: torch.Tensor, skeys: torch.Tensor):
+        return probe.probe_open_addressing(table, skeys, cfg.probe_length,
+                                           identity_hash)
+
+    return scatter_join("atomic", r, s, cfg, build, probe_table)

@@ -61,22 +61,37 @@ def to_tiles(keys: torch.Tensor, tile: int) -> torch.Tensor:
     return keys.contiguous()
 
 
+def _pow2_pad(n: int, tile: int) -> int:
+    """The MAXI32 keys that pad n keys to a power-of-two tile count (at
+    least one)."""
+    n_tiles = max(1, -(-n // tile))
+    return (1 << (n_tiles - 1).bit_length()) * tile - n
+
+
 def to_tiles_pow2(keys: torch.Tensor, tile: int) -> torch.Tensor:
     """Like ``to_tiles`` but pads to a power-of-two tile count (at least
     one), as the global sort needs."""
-    n_tiles = max(1, -(-keys.numel() // tile))
-    n_tiles = 1 << (n_tiles - 1).bit_length()
-    pad = n_tiles * tile - keys.numel()
+    pad = _pow2_pad(keys.numel(), tile)
     if pad:
         keys = torch.cat([keys, torch.full((pad,), MAXI32, dtype=torch.int32,
                                            device=keys.device)])
     return keys.contiguous()
 
 
-def _end_pad(s: torch.Tensor, tile: int, max_chunks: int) -> torch.Tensor:
+def k3_sort(keys: torch.Tensor, tile: int = DEFAULT_TILE) -> torch.Tensor:
+    """The ascending sort of n int32 keys by K3: padded with MAXI32 to a
+    power-of-two tile count, sorted, and cut to n (the padding sorts last;
+    keys equal to MAXI32 stay, being equal)."""
+    return global_sort_tiles(to_tiles_pow2(keys, tile),
+                             tile=tile)[:keys.numel()]
+
+
+def _end_pad(s: torch.Tensor, tile: int, max_chunks: int,
+             pad: int = 0) -> torch.Tensor:
     """A band or chunk run that starts at S's very end must still be
-    readable: max_chunks tiles + OV_ROWS rows of MAXI32, as in JAX."""
-    end = torch.full((max_chunks * tile + OV_ROWS * LANES,), MAXI32,
+    readable: max_chunks tiles + OV_ROWS rows of MAXI32, as in JAX, after
+    ``pad`` more MAXI32 keys."""
+    end = torch.full((pad + max_chunks * tile + OV_ROWS * LANES,), MAXI32,
                      dtype=torch.int32, device=s.device)
     return torch.cat([s, end])
 
@@ -90,10 +105,11 @@ def prepare_probe_side(skeys_sorted: torch.Tensor, tile: int = DEFAULT_TILE,
 def sort_probe_side(skeys: torch.Tensor, tile: int = DEFAULT_TILE,
                     max_chunks: int = MAX_CHUNKS_DEFAULT):
     """Globally sort an unsorted probe side (zipf / fk / nonunique S) on the
-    device with K3; returns (skeys_sorted, s_padded) for the banded plans."""
-    s_sorted = global_sort_tiles(to_tiles_pow2(skeys, tile), tile=tile)
-    return (s_sorted[:skeys.numel()],
-            _end_pad(s_sorted, tile, max_chunks))
+    device with K3; returns (skeys_sorted, s_padded) for the banded plans.
+    s_padded keeps the sort's power-of-two tile count, the JAX layout."""
+    s_sorted = k3_sort(skeys, tile)
+    return s_sorted, _end_pad(s_sorted, tile, max_chunks,
+                              _pow2_pad(skeys.numel(), tile))
 
 
 def _slice_offsets(skeys_sorted: torch.Tensor, mins: torch.Tensor,
@@ -192,8 +208,7 @@ def tagged_count(r_keys: torch.Tensor, skeys: torch.Tensor, *,
     with span("hj.enqueue"):
         comp_r = torch.where(r_keys == MAXI32, MAXI32, r_keys * 2)
         comp = torch.cat([comp_r.reshape(-1), skeys.reshape(-1) * 2 + 1])
-        comp_sorted = global_sort_tiles(to_tiles_pow2(comp, tile), tile=tile)
-        return segmented_count_tagged(comp_sorted[:comp.numel()])
+        return segmented_count_tagged(k3_sort(comp, tile))
 
 
 def _check_status(status_max: int) -> None:

@@ -1,6 +1,8 @@
 """Shared join-phase machinery: routing, the banded engine's planner, the
-displacement sniff and dial, the scatter builds' spill, and the metrics
-schema.
+displacement sniff and dial, the scatter builds' spill, the metrics schema,
+and the two drivers every join route ends in: ``engine_join`` (one call of
+the banded engine on a ``BandedPlan``) and ``scatter_join`` (build a
+scatter table, spill, probe).
 
 Counterpart of ``htm_hashjoin_tpu/joins/common.py``.  Every join runs the
 reference's phase protocol (build, then probe, with the host boundary as
@@ -19,7 +21,7 @@ from __future__ import annotations
 
 import functools
 import time
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -127,8 +129,8 @@ class SpillState:
     key (``sortops.merge_count``), where JAX re-sorts both as tagged
     composites.
 
-    Its callers, the four scatter joins, make it inside their ``hj.build``
-    span and call ``probe_count`` inside their ``hj.probe`` span."""
+    ``scatter_join`` makes it inside its ``hj.build`` span and calls
+    ``probe_count`` inside its ``hj.probe`` span."""
 
     def __init__(self, keys: torch.Tensor, pending: torch.Tensor,
                  timer: PhaseTimer, head=()):
@@ -155,11 +157,9 @@ def finish_metrics(m: JoinMetrics, timer: PhaseTimer,
                    retry: bool = False) -> JoinMetrics:
     """Fold a timed run into the metrics: the build phase (with the spill)
     and the probe phase (with the spill's probe), the match count, and the
-    failure fractions (fractions despite the names, the reference's own
-    convention, HTMHashBuild.hpp:410-415); under TM_RETRY
-    totalFailedPercentage counts only the residual conflicts.  The timed
-    phases' counters (``--counters``) go into the line as ``counters``,
-    the reference's per-phase PCM dumps (no_partitioning_join.c:458-527)."""
+    failure fractions (``failure_fractions``).  The timed phases' counters
+    (``--counters``) go into the line as ``counters``, the reference's
+    per-phase PCM dumps (no_partitioning_join.c:458-527)."""
     with span("hj.line"):
         if timer.counters:
             m.extra["counters"] = timer.counters
@@ -171,18 +171,29 @@ def finish_metrics(m: JoinMetrics, timer: PhaseTimer,
                                          + micros.get("probe_spill", 0.0))
         if total_matches is not None:
             m.totalMatches = total_matches
-        if m.rSize:
-            m.failedTransactionPercentage = m.failedTransactions / m.rSize
-            m.totalFailedPercentage = (
-                m.conflictCount / m.rSize if retry else
-                (m.failedTransactions + m.conflictCount) / m.rSize)
+        failure_fractions(m, retry)
         return m
+
+
+def failure_fractions(m: JoinMetrics, retry: bool) -> None:
+    """The failure fractions (fractions despite the names, the reference's
+    own convention, HTMHashBuild.hpp:410-415); under TM_RETRY
+    totalFailedPercentage counts only the residual conflicts."""
+    if m.rSize:
+        m.failedTransactionPercentage = m.failedTransactions / m.rSize
+        m.totalFailedPercentage = (
+            m.conflictCount / m.rSize if retry else
+            (m.failedTransactions + m.conflictCount) / m.rSize)
+
+
+def probes(s: Optional[Relation], cfg: JoinConfig) -> bool:
+    """The join has a probe side: without one it builds only."""
+    return s is not None and cfg.enable_probe
 
 
 def resolve_relations(r: Relation, s: Optional[Relation], cfg: JoinConfig
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    skeys = s.keys if (s is not None and cfg.enable_probe) else None
-    return r.keys, skeys
+    return r.keys, (s.keys if probes(s, cfg) else None)
 
 
 # ---------------------------------------------------------------------------
@@ -201,9 +212,7 @@ def use_pallas_engine(cfg: JoinConfig, s: Optional[Relation]) -> bool:
     """The banded engine qualifies for a build+probe: a probe side, keys
     below PACK_LIMIT (the kernels count only those), no mesh, and a backend
     other than ``xla``."""
-    if cfg.backend == "xla" or cfg.mesh_shape:
-        return False
-    if s is None or not cfg.enable_probe:
+    if cfg.backend == "xla" or cfg.mesh_shape or not probes(s, cfg):
         return False
     return _max_key_bound(cfg) < PACK_LIMIT
 
@@ -221,7 +230,7 @@ def use_pallas_engine_build(cfg: JoinConfig) -> bool:
 def route_unique_pallas(cfg: JoinConfig, s: Optional[Relation]) -> bool:
     """Routing of the identity-hash builds (atomic, nocc): the banded
     engine only on generator-certified unique keys, probing or not."""
-    if s is not None and cfg.enable_probe:
+    if probes(s, cfg):
         return keys_are_unique(cfg) and use_pallas_engine(cfg, s)
     return use_pallas_engine_build(cfg)
 
@@ -296,8 +305,7 @@ def _sniff_profile(keys: torch.Tensor, chunk: int, k: int) -> torch.Tensor:
     return torch.stack([disp.amax().to(torch.int64), dups.to(torch.int64)])
 
 
-def adaptive_window_estimate(rkeys: torch.Tensor, cfg: JoinConfig,
-                             timer=None) -> dict:
+def adaptive_window_estimate(rkeys: torch.Tensor, cfg: JoinConfig) -> dict:
     """HTM_ADAPT's observation step (HTMHashBuild.hpp:196-211): sample
     sniff_rounds strided chunks of sniff_chunk keys, measure their
     displacement profile on the device (one readback), and return the
@@ -308,8 +316,6 @@ def adaptive_window_estimate(rkeys: torch.Tensor, cfg: JoinConfig,
         stats = _sniff_profile(rkeys, chunk, k)
     mx, dups = readback(stats)                             # the one readback
     sniff_us = (time.perf_counter() - t0) * 1e6
-    if timer is not None:
-        timer.micros["sniff"] = timer.micros.get("sniff", 0.0) + sniff_us
     return {"maxDisplacement": mx, "sampleDuplicates": dups,
             "sniffTimeUs": sniff_us, "sampleChunks": k,
             "sampleChunkSize": chunk,
@@ -396,16 +402,6 @@ def plan_traffic_bytes(cfg: JoinConfig, plan: BandedPlan, probing: bool,
     return byts
 
 
-def _record_traffic(m: JoinMetrics, cfg: JoinConfig, plan: BandedPlan,
-                    probing: bool, sort_s: bool, elapsed_us: float) -> None:
-    """With a counter session on, the plan's modelled traffic over the
-    join's time goes into the line as ``counters``."""
-    if active_counters() is not None:
-        m.extra["counters"] = {("build+probe" if probing else "build"):
-                               traffic_counters(plan_traffic_bytes(
-                                   cfg, plan, probing, sort_s), elapsed_us)}
-
-
 def pallas_metrics(cfg: JoinConfig, algo: str, outcome, elapsed_us: float,
                    matches: Optional[int], plan: BandedPlan,
                    sort_s: bool = False) -> JoinMetrics:
@@ -413,7 +409,9 @@ def pallas_metrics(cfg: JoinConfig, algo: str, outcome, elapsed_us: float,
     ``backend`` name stays the JAX package's, so that lines compare).
 
     ``plan`` (the plan the join ran) and ``sort_s`` (whether it sorted S on
-    the device) feed the ``--counters`` traffic model."""
+    the device) feed the ``--counters`` traffic model: with a counter
+    session on, the plan's modelled traffic over the join's time goes into
+    the line as ``counters``."""
     with span("hj.line"):
         m = JoinMetrics(algo=algo, rSize=cfg.r_size,
                         transactionSize=cfg.transaction_size,
@@ -427,54 +425,14 @@ def pallas_metrics(cfg: JoinConfig, algo: str, outcome, elapsed_us: float,
             m.totalMatches = matches
         m.extra["backend"] = "pallas_banded"
         m.extra["resorted"] = outcome.resorted
-        _record_traffic(m, cfg, plan, matches is not None, sort_s, elapsed_us)
-        if cfg.r_size:
-            # fractions, with the TM_RETRY rule (HTMHashBuild.hpp:410-415)
-            m.failedTransactionPercentage = m.failedTransactions / cfg.r_size
-            m.totalFailedPercentage = (
-                m.conflictCount / cfg.r_size if cfg.retry else
-                (m.failedTransactions + m.conflictCount) / cfg.r_size)
+        if active_counters() is not None:
+            probing = matches is not None
+            m.extra["counters"] = {("build+probe" if probing else "build"):
+                                   traffic_counters(plan_traffic_bytes(
+                                       cfg, plan, probing, sort_s),
+                                       elapsed_us)}
+        failure_fractions(m, cfg.retry)
         return m
-
-
-def pallas_unique_join(algo: str, r: Relation, s: Optional[Relation],
-                       cfg: JoinConfig) -> JoinMetrics:
-    """The banded engine as the identity-hash builds (atomic, nocc) on
-    generator-certified unique build keys.  With unique keys the
-    open-addressing table at 2x load loses and spills nothing (keys 1..n
-    take distinct slots under key & (2n-1)), so conflicts and
-    failedTransactions are 0 in both formulations and the sorted-tile
-    engine gives the same line; an unsorted or duplicate-heavy S takes the
-    device sort and the general count."""
-    probing = s is not None and cfg.enable_probe
-    plan = pallas_plan(cfg, probing=probing)
-    t0 = time.perf_counter()
-    if probing:
-        out = banded_join_pipelined(r.keys, s.keys,
-                                    locality_window=plan.window,
-                                    presort=plan.presort,
-                                    presorted=plan.presorted,
-                                    narrow=plan.narrow,
-                                    sort_s=not s.assume_sorted,
-                                    unique_both=keys_unique_both(cfg))
-    else:
-        out = banded_build_pipelined(r.keys, locality_window=plan.window,
-                                     presort=plan.presort,
-                                     presorted=plan.presorted)
-    elapsed_us = (time.perf_counter() - t0) * 1e6
-    m = JoinMetrics(algo=algo, rSize=cfg.r_size,
-                    transactionSize=cfg.transaction_size,
-                    probeLength=cfg.probe_length,
-                    inputSum=out.input_sum, outputSum=out.output_sum,
-                    hashBuildTimeInMicroseconds=elapsed_us)
-    if probing:
-        m.totalMatches = out.matches
-    m.extra["backend"] = "pallas_banded"
-    m.extra["resorted"] = out.resorted
-    _record_traffic(m, cfg, plan, probing,
-                    probing and not s.assume_sorted, elapsed_us)
-    maybe_pipeline_timing(m, cfg, plan, r, s if probing else None, out)
-    return m
 
 
 def maybe_pipeline_timing(m: JoinMetrics, cfg: JoinConfig, plan: BandedPlan,
@@ -498,22 +456,144 @@ def maybe_pipeline_timing(m: JoinMetrics, cfg: JoinConfig, plan: BandedPlan,
         if s is not None:
             for _ in range(depth):
                 res = enqueue_full_join(r.keys, s.keys,
-                                        locality_window=plan.window,
-                                        presort=plan.presort,
-                                        presorted=plan.presorted,
-                                        narrow=plan.narrow,
-                                        sort_s=not s.assume_sorted,
-                                        unique_both=keys_unique_both(cfg),
-                                        s2d=s2d)
+                                        **plan_args(plan, cfg, s), s2d=s2d)
             readback(torch.stack(res[:5]))           # one fence for the batch
         else:
             for _ in range(depth):
-                head = enqueue_banded_build(r.keys,
-                                            locality_window=plan.window,
-                                            presort=plan.presort,
-                                            presorted=plan.presorted)
+                head = enqueue_banded_build(r.keys, **plan_args(plan))
             readback(head)
         per_point_us = (time.perf_counter() - t0) * 1e6 / depth
         m.extra["singleRunTimeInMicroseconds"] = m.hashBuildTimeInMicroseconds
         m.extra["pipelineDepth"] = depth
         m.hashBuildTimeInMicroseconds = per_point_us
+
+
+# ---------------------------------------------------------------------------
+# The engine driver: one call of the banded engine on a plan
+# ---------------------------------------------------------------------------
+
+def plan_args(plan: BandedPlan, cfg: Optional[JoinConfig] = None,
+              s: Optional[Relation] = None) -> dict:
+    """The engine's keyword arguments for ``plan``: the build's, and with a
+    probe side ``s`` the join's (S sorted on the device unless it is
+    certainly sorted; both sides unique where the generator certifies
+    it)."""
+    args = dict(locality_window=plan.window, presort=plan.presort,
+                presorted=plan.presorted)
+    if s is not None:
+        args.update(narrow=plan.narrow, sort_s=not s.assume_sorted,
+                    unique_both=keys_unique_both(cfg))
+    return args
+
+
+def _engine(r: Relation, s: Optional[Relation], cfg: JoinConfig,
+            plan: BandedPlan):
+    """The engine on ``plan``, the join or (no probe side) the build, with
+    its one readback on the fast path: (outcome, elapsed microseconds)."""
+    t0 = time.perf_counter()
+    if probes(s, cfg):
+        out = banded_join_pipelined(r.keys, s.keys, **plan_args(plan, cfg, s))
+    else:
+        out = banded_build_pipelined(r.keys, **plan_args(plan))
+    return out, (time.perf_counter() - t0) * 1e6
+
+
+def engine_line(algo: str, r: Relation, s: Optional[Relation],
+                cfg: JoinConfig, plan: BandedPlan, out, elapsed_us: float,
+                fields: Optional[Callable[[JoinMetrics], None]] = None,
+                pipe_ref=None, sustained: bool = True) -> JoinMetrics:
+    """The engine's line in an ``hj.line`` span: ``pallas_metrics`` of
+    ``out``, the route's own ``fields(m)``, then, where the route has it
+    (``sustained``), the sustained timing (``maybe_pipeline_timing``)
+    unless ``pipe_ref``, the run it repeats (default ``out``), retried or
+    repaired."""
+    probing = probes(s, cfg)
+    with span("hj.line"):
+        m = pallas_metrics(cfg, algo, out, elapsed_us,
+                           out.matches if probing else None, plan=plan,
+                           sort_s=probing and not s.assume_sorted)
+        if fields is not None:
+            fields(m)
+        if sustained:
+            maybe_pipeline_timing(m, cfg, plan, r, s if probing else None,
+                                  out if pipe_ref is None else pipe_ref)
+        return m
+
+
+def engine_join(algo: str, r: Relation, s: Optional[Relation],
+                cfg: JoinConfig, plan: Optional[BandedPlan] = None,
+                fields: Optional[Callable[[JoinMetrics], None]] = None,
+                sustained: bool = True) -> JoinMetrics:
+    """A join as one call of the banded engine on ``plan`` (default: the
+    planner's, ``pallas_plan``), the join or, without a probe side, the
+    build; the engine call and its line are the planner's ``hj.plan``
+    span.  ``fields(m)`` adds the route's own fields to the line;
+    ``sustained`` off leaves out the sustained timing (npo, as in JAX)."""
+    with span("hj.plan"):
+        if plan is None:
+            plan = pallas_plan(cfg, probing=probes(s, cfg))
+        out, elapsed_us = _engine(r, s, cfg, plan)
+        return engine_line(algo, r, s, cfg, plan, out, elapsed_us, fields,
+                           sustained=sustained)
+
+
+def unique_table_fields(m: JoinMetrics) -> None:
+    """The line of the identity-hash builds (atomic, nocc) when the engine
+    runs them on generator-certified unique build keys.  The
+    open-addressing table at 2x load loses and spills nothing there (keys
+    1..n take distinct slots under key & (2n-1)), so conflicts and
+    failedTransactions are 0 in both formulations, whatever tiles a skewed
+    S flags in the engine's count; the engine gives the same matches and
+    sums (an unsorted or duplicate-heavy S takes the device sort and the
+    general count)."""
+    m.conflictCount = m.failedTransactions = 0
+    m.failedTransactionPercentage = m.totalFailedPercentage = 0.0
+
+
+# ---------------------------------------------------------------------------
+# The scatter driver: build a table, spill, probe
+# ---------------------------------------------------------------------------
+
+def _summed_build(build, keys: torch.Tensor):
+    """``build(keys)``, then the sums conservation compares: the table's
+    keys and the input's."""
+    table, pending, *extra = build(keys)
+    return (table, pending, *extra, probe.table_sum(table),
+            torch.sum(keys, dtype=torch.int64))
+
+
+def scatter_join(algo: str, r: Relation, s: Optional[Relation],
+                 cfg: JoinConfig, build, probe_table, *,
+                 probe_spill: bool = True, fields=None) -> JoinMetrics:
+    """A scatter table's join (atomic, nocc, npo, htm's scatter route):
+    the timed build and its spill (``SpillState``) in ``hj.build``; the
+    timed probe of the table and, unless ``probe_spill`` is off (nocc,
+    whose conflicts feed outputSum only), of the spill in ``hj.probe``;
+    then the line (``finish_metrics``).
+
+    ``build(rkeys)`` returns (table, pending, *extra): ``extra`` are int64
+    device scalars that ride the spill's readback and reach
+    ``fields(m, *extra)`` as numbers, which adds the algorithm's own fields
+    to the line.  ``probe_table(table, skeys)`` returns the table's match
+    count as a device scalar."""
+    rkeys, skeys = resolve_relations(r, s, cfg)
+    timer = PhaseTimer()
+    with span("hj.build"):
+        table, pending, *head = timer.timed("build", _summed_build, build,
+                                            rkeys)
+        spill = SpillState(rkeys, pending, timer, head=head)
+    *extra, table_sum, in_sum = spill.head
+    matches = None
+    if skeys is not None:
+        with span("hj.probe"):
+            matches = readback(timer.timed("probe", probe_table, table,
+                                           skeys))
+            if probe_spill:
+                matches += spill.probe_count(skeys, timer)
+    m = JoinMetrics(algo=algo, rSize=cfg.r_size,
+                    transactionSize=cfg.transaction_size,
+                    probeLength=cfg.probe_length, conflictCount=spill.count,
+                    inputSum=in_sum, outputSum=table_sum + spill.key_sum)
+    if fields is not None:
+        fields(m, *extra)
+    return finish_metrics(m, timer, matches, retry=cfg.retry)

@@ -34,23 +34,24 @@ from ..ops.hashing import locality_hash
 from ..relation import Relation
 from ..utils.metrics import JoinMetrics
 from ..utils.profiler import span
-from ..utils.timing import PhaseTimer, readback
+from ..utils.timing import readback
 from .banded_backend import (DEFAULT_TILE, BandedJoinOutcome,
-                             banded_build_pipelined, banded_join_pipelined,
-                             enqueue_banded_build, enqueue_full_join)
-from .common import (BandedPlan, SpillState, adaptive_guess_plan,
-                     adaptive_window_estimate, dial_window, finish_metrics,
-                     htm_num_buckets, join_scope, keys_unique_both,
+                             banded_build_pipelined, enqueue_banded_build,
+                             enqueue_full_join)
+from .common import (BandedPlan, _engine, adaptive_guess_plan,
+                     adaptive_window_estimate, dial_window, engine_join,
+                     engine_line, htm_num_buckets, join_scope,
                      maybe_pipeline_timing, pallas_metrics, pallas_plan,
-                     resolve_relations, sniff_enqueue, sniff_stats_dict,
-                     use_pallas_engine, use_pallas_engine_build)
+                     plan_args, probes, scatter_join, sniff_enqueue,
+                     sniff_stats_dict, use_pallas_engine,
+                     use_pallas_engine_build)
 
 
 def _adaptive_pallas_plan(r: Relation, cfg: JoinConfig, probing: bool):
     """HTM_ADAPT, sniff first: the measured sample displacement replaces
     the declared window in the sorter choice (HTMHashBuild.hpp:204-211).
     Returns (plan, sniff_stats).  It pays one readback before the engine
-    runs; the production adaptive paths fold the sniff into the engine's
+    runs; the fused dial (``_htm_dial``) folds the sniff into the engine's
     readback instead.  Kept for the TM_TRACK build, whose per-tile cause
     vectors need the plan up front."""
     est = adaptive_window_estimate(r.keys, cfg)
@@ -59,8 +60,15 @@ def _adaptive_pallas_plan(r: Relation, cfg: JoinConfig, probing: bool):
     return pallas_plan(cfg, probing=probing, window_override=window), est
 
 
-def _dialed_plan_extra(plan: BandedPlan, est: dict) -> dict:
-    return {"window": plan.window, "presort": plan.presort, **est}
+def _adaptive_metrics(m: JoinMetrics, plan: BandedPlan, est: dict,
+                      cached: bool = False) -> None:
+    """The dial's line fields: the plan it ran and the sniff's statistics
+    (``adaptivePlan``), and the transaction size they amount to."""
+    m.extra["adaptivePlan"] = {"window": plan.window, "presort": plan.presort,
+                               **est}
+    if cached:
+        m.extra["adaptivePlan"]["dialCached"] = True
+    m.extra["adaptiveTransactionSizeFinal"] = max(1, plan.window or 4096)
 
 
 # Profile-guided dial memory: repeated joins over one relation reuse the
@@ -95,150 +103,69 @@ def _dial_remember(key, keys, plan, est):
     _DIAL_CACHE[key] = (weakref.ref(keys), plan, est)
 
 
-def _adaptive_metrics(m: JoinMetrics, plan: BandedPlan, est: dict,
-                      cached: bool) -> None:
-    m.extra["adaptivePlan"] = _dialed_plan_extra(plan, est)
-    if cached:
-        m.extra["adaptivePlan"]["dialCached"] = True
-    m.extra["adaptiveTransactionSizeFinal"] = max(1, plan.window or 4096)
-
-
-def _htm_join_pallas_adaptive(r: Relation, s: Relation,
-                              cfg: JoinConfig) -> JoinMetrics:
-    """HTM_ADAPT with the sniff folded into the engine chain: the
-    displacement sniff and the join under an optimistic guess plan are
-    enqueued back to back; one readback returns the join's scalars and the
-    sniff statistics.  A clean guess (no violations, no flagged tiles)
-    costs the engine run and nothing more; a dirty one replans from the
-    sniffed displacement and reruns through the self-repairing pipeline
-    (the abort -> retry protocol, with the dial riding the abort)."""
+def _htm_dial(r: Relation, s: Optional[Relation],
+              cfg: JoinConfig) -> JoinMetrics:
+    """HTM_ADAPT with the sniff folded into the engine chain, over the join
+    or (``s`` None) the build alone: the displacement sniff and the engine
+    under an optimistic guess plan are enqueued back to back; one readback
+    returns the engine's scalars and the sniff statistics.  A clean guess
+    (no violations, no flagged tiles) costs the engine run and nothing
+    more; a dirty one replans from the sniffed displacement and reruns
+    through the self-repairing pipeline (the abort -> retry protocol, with
+    the dial riding the abort)."""
+    probing = s is not None
     with span("hj.plan"):
-        sort_s = not s.assume_sorted
-        unique_both = keys_unique_both(cfg)
-        ck = _dial_key(r, cfg, True)
+        ck = _dial_key(r, cfg, probing)
         cached = _dial_lookup(ck, r.keys)
     if cached is not None:
         plan, est = cached
-        t0 = time.perf_counter()
-        out = banded_join_pipelined(r.keys, s.keys,
-                                    locality_window=plan.window,
-                                    presort=plan.presort,
-                                    presorted=plan.presorted,
-                                    narrow=plan.narrow, sort_s=sort_s,
-                                    unique_both=unique_both)
-        elapsed_us = (time.perf_counter() - t0) * 1e6
-        m = pallas_metrics(cfg, "htm", out, elapsed_us, out.matches,
-                           plan=plan, sort_s=sort_s)
-        _adaptive_metrics(m, plan, est, True)
-        maybe_pipeline_timing(m, cfg, plan, r, s, out)
-        return m
+        return engine_join(
+            "htm", r, s, cfg, plan,
+            lambda m: _adaptive_metrics(m, plan, est, cached=True))
     t0 = time.perf_counter()
     sniff_dev, chunk, k = sniff_enqueue(r.keys, cfg)        # no fence
     with span("hj.plan"):
-        guess = adaptive_guess_plan(cfg, probing=True)
-    res = enqueue_full_join(r.keys, s.keys, locality_window=guess.window,
-                            presort=guess.presort, presorted=guess.presorted,
-                            narrow=guess.narrow, sort_s=sort_s,
-                            unique_both=unique_both)
-    # the one readback: the join's scalars and the sniff's statistics
-    matches_i, viols_i, flagged, out_sum, in_sum, mx, dups = readback(
-        torch.cat([torch.stack(res[:5]), sniff_dev]))
+        guess = adaptive_guess_plan(cfg, probing=probing)
+    if probing:
+        # five scalars: matches, violations, flagged tiles, out_sum, in_sum
+        head = torch.stack(enqueue_full_join(
+            r.keys, s.keys, **plan_args(guess, cfg, s))[:5])
+    else:
+        # three scalars: violations, out_sum, in_sum
+        head = enqueue_banded_build(r.keys, **plan_args(guess))
+    # the one readback: the engine's scalars and the sniff's statistics
+    *scalars, mx, dups = readback(torch.cat([head, sniff_dev]))
+    matches, viols, flagged, out_sum, in_sum = (
+        scalars if probing else (0, scalars[0], 0, *scalars[1:]))
     with span("hj.plan"):
         est = sniff_stats_dict(mx, dups, chunk, k)
         window = dial_window(mx, chunk)
         est["windowEstimate"] = None if window >= (1 << 30) else window
-        aborted = bool(viols_i or flagged)
+        aborted = bool(viols or flagged)
         if aborted:
-            plan = pallas_plan(cfg, window_override=window)
+            plan = pallas_plan(cfg, probing=probing, window_override=window)
     if aborted:
         # abort -> the dialed repair run (the self-repairing pipeline
-        # handles its own overflow and mass replan); its host work between
-        # its own spans, and the release of its buffers, is the plan's
+        # handles its own overflow and mass replan)
         with span("hj.plan"):
-            fresh = banded_join_pipelined(r.keys, s.keys,
-                                          locality_window=plan.window,
-                                          presort=plan.presort,
-                                          presorted=plan.presorted,
-                                          narrow=plan.narrow, sort_s=sort_s,
-                                          unique_both=unique_both)
-        out = fresh._replace(violations=max(fresh.violations, viols_i),
+            fresh, _ = _engine(r, s, cfg, plan)
+        out = fresh._replace(violations=max(fresh.violations, viols),
                              resorted=True)
         # sustained timing measures the dialed plan: the guess miss stays
         # in the single-run number only
         pipe_ref = fresh
     else:
         plan = guess
-        out = BandedJoinOutcome(matches_i, 0, 0, out_sum, False, in_sum)
+        out = BandedJoinOutcome(matches, 0, 0, out_sum, False, in_sum)
         pipe_ref = out
     elapsed_us = (time.perf_counter() - t0) * 1e6
-    with span("hj.line"):
-        m = pallas_metrics(cfg, "htm", out, elapsed_us, out.matches,
-                           plan=plan, sort_s=sort_s)
+
+    def fields(m: JoinMetrics) -> None:
         _dial_remember(ck, r.keys, plan, est)
-        _adaptive_metrics(m, plan, est, False)
-        maybe_pipeline_timing(m, cfg, plan, r, s, pipe_ref)
-    return m
+        _adaptive_metrics(m, plan, est)
 
-
-def _htm_build_pallas_adaptive(cfg: JoinConfig, r: Relation) -> JoinMetrics:
-    """Build-only fused dial: sniff and optimistic build share one readback
-    (see _htm_join_pallas_adaptive)."""
-    with span("hj.plan"):
-        ck = _dial_key(r, cfg, False)
-        cached = _dial_lookup(ck, r.keys)
-    if cached is not None:
-        plan, est = cached
-        t0 = time.perf_counter()
-        out = banded_build_pipelined(r.keys, locality_window=plan.window,
-                                     presort=plan.presort,
-                                     presorted=plan.presorted)
-        elapsed_us = (time.perf_counter() - t0) * 1e6
-        m = pallas_metrics(cfg, "htm", out, elapsed_us, None, plan=plan)
-        _adaptive_metrics(m, plan, est, True)
-        maybe_pipeline_timing(m, cfg, plan, r, None, out)
-        return m
-    t0 = time.perf_counter()
-    sniff_dev, chunk, k = sniff_enqueue(r.keys, cfg)        # no fence
-    with span("hj.plan"):
-        guess = adaptive_guess_plan(cfg, probing=False)
-    head = enqueue_banded_build(r.keys, locality_window=guess.window,
-                                presort=guess.presort,
-                                presorted=guess.presorted)
-    viols_i, out_sum, in_sum, mx, dups = readback(
-        torch.cat([head, sniff_dev]))                       # the one readback
-    with span("hj.plan"):
-        est = sniff_stats_dict(mx, dups, chunk, k)
-        window = dial_window(mx, chunk)
-        est["windowEstimate"] = None if window >= (1 << 30) else window
-        if viols_i:
-            plan = pallas_plan(cfg, probing=False, window_override=window)
-    if viols_i:
-        fresh = banded_build_pipelined(r.keys, locality_window=plan.window,
-                                       presort=plan.presort,
-                                       presorted=plan.presorted)
-        out = fresh._replace(violations=max(fresh.violations, viols_i),
-                             resorted=True)
-        pipe_ref = fresh
-    else:
-        plan = guess
-        out = BandedJoinOutcome(0, 0, 0, out_sum, False, in_sum)
-        pipe_ref = out
-    elapsed_us = (time.perf_counter() - t0) * 1e6
-    m = pallas_metrics(cfg, "htm", out, elapsed_us, None, plan=plan)
-    _dial_remember(ck, r.keys, plan, est)
-    _adaptive_metrics(m, plan, est, False)
-    maybe_pipeline_timing(m, cfg, plan, r, None, pipe_ref)
-    return m
-
-
-def _build(keys: torch.Tensor, num_buckets: int, retry: bool, chunk: int):
-    """The scatter build: (table, pending, failed count, per-chunk failure
-    fractions, table key sum, input key sum), all on the keys' device."""
-    res = insert.htm_optimistic_build(keys, num_buckets, retry=retry)
-    return (res.table, res.pending,
-            torch.sum(res.failed_optimistic, dtype=torch.int64),
-            insert.chunk_failure_fractions(res.failed_optimistic, chunk),
-            probe.table_sum(res.table), torch.sum(keys, dtype=torch.int64))
+    return engine_line("htm", r, s, cfg, plan, out, elapsed_us, fields,
+                       pipe_ref)
 
 
 def _probe(table: torch.Tensor, skeys: torch.Tensor) -> torch.Tensor:
@@ -264,11 +191,28 @@ def htm_join(r: Relation, s: Optional[Relation] = None,
              cfg: JoinConfig = JoinConfig()) -> JoinMetrics:
     if cfg.switch_sniff:
         return _htm_switch_join(r, s, cfg)
-    if use_pallas_engine(cfg, s):
-        return _htm_join_pallas(r, s, cfg)
-    if (s is None or not cfg.enable_probe) and use_pallas_engine_build(cfg):
-        return _htm_build_pallas(cfg, r)
-    return _htm_scatter_join(r, s, cfg)
+    probing = use_pallas_engine(cfg, s)
+    building = not probes(s, cfg) and use_pallas_engine_build(cfg)
+    if not (probing or building):
+        return _htm_scatter_join(r, s, cfg)
+    # the banded engine: the join (one host readback on the fast path), or
+    # the build alone (ENABLE_PROBE off, the reference's default binary),
+    # the optimistic tile sort being the build there; violations map to
+    # failedTransactions, the bitonic retry to TM_RETRY
+    s = s if probing else None
+    if cfg.track and building:
+        return _htm_track_build(r, cfg)
+    if cfg.adaptive:
+        return _htm_dial(r, s, cfg)
+    return engine_join("htm", r, s, cfg,
+                       fields=_failure_causes if cfg.track else None)
+
+
+def _failure_causes(m: JoinMetrics) -> None:
+    """TM_TRACK on the engine's join: its two failure modes, displacement
+    violations of the optimistic sorter and band overflow of the count."""
+    m.extra["failureCauseDisplacement"] = m.failedTransactions
+    m.extra["failureCauseBandOverflow"] = m.conflictCount
 
 
 def _htm_scatter_join(r: Relation, s: Optional[Relation],
@@ -278,37 +222,33 @@ def _htm_scatter_join(r: Relation, s: Optional[Relation],
     duplicate or bucket alias (_XABORT_CONFLICT), a claim-round residue
     that spilled is capacity (_XABORT_CAPACITY); nothing here assumes a
     bounded displacement, so that cause is 0."""
-    rkeys, skeys = resolve_relations(r, s, cfg)
-    timer = PhaseTimer()
-    with span("hj.build"):
-        table, pending, failed, chunk_fail, table_sum, in_sum = timer.timed(
-            "build", _build, rkeys, htm_num_buckets(cfg.r_size), cfg.retry,
-            cfg.chunk_size)
-        spill = SpillState(rkeys, pending, timer,
-                           head=(failed, table_sum, in_sum))
-    failed, table_sum, in_sum = spill.head
-    matches = None
-    if skeys is not None:
-        with span("hj.probe"):
-            matches = readback(timer.timed("probe", _probe, table, skeys))
-            matches += spill.probe_count(skeys, timer)
-    m = JoinMetrics(algo="htm", rSize=cfg.r_size,
-                    transactionSize=cfg.transaction_size,
-                    probeLength=cfg.probe_length,
-                    conflictCount=spill.count, failedTransactions=failed,
-                    inputSum=in_sum, outputSum=table_sum + spill.key_sum)
-    cf = readback(chunk_fail) if (cfg.track or cfg.adaptive) else []
-    if cfg.track:
-        m.extra["chunkFailureFractions"] = cf[:64]
-        m.extra["maxChunkFailureFraction"] = max(cf) if cf else 0.0
-        m.extra["failureCauseDisplacement"] = 0
-        m.extra["failureCauseDuplicateAlias"] = failed
-        m.extra["failureCauseBandOverflow"] = spill.count
-    if cfg.adaptive:
-        trace = simulate_adaptive_tsize(cf, cfg.transaction_size)
-        m.extra["adaptiveTransactionSizeFinal"] = (
-            trace[-1] if trace else cfg.transaction_size)
-    return finish_metrics(m, timer, matches, retry=cfg.retry)
+    chunk_fail = []
+
+    def build(keys: torch.Tensor):
+        res = insert.htm_optimistic_build(
+            keys, htm_num_buckets(cfg.r_size), retry=cfg.retry)
+        failed = torch.sum(res.failed_optimistic, dtype=torch.int64)
+        # the per-chunk failure fractions stay on the device until TM_TRACK
+        # or HTM_ADAPT reads them
+        chunk_fail.append(insert.chunk_failure_fractions(
+            res.failed_optimistic, cfg.chunk_size))
+        return res.table, res.pending, failed
+
+    def fields(m: JoinMetrics, failed: int) -> None:
+        m.failedTransactions = failed
+        cf = readback(chunk_fail[0]) if (cfg.track or cfg.adaptive) else []
+        if cfg.track:
+            m.extra["chunkFailureFractions"] = cf[:64]
+            m.extra["maxChunkFailureFraction"] = max(cf) if cf else 0.0
+            m.extra["failureCauseDisplacement"] = 0
+            m.extra["failureCauseDuplicateAlias"] = failed
+            m.extra["failureCauseBandOverflow"] = m.conflictCount
+        if cfg.adaptive:
+            trace = simulate_adaptive_tsize(cf, cfg.transaction_size)
+            m.extra["adaptiveTransactionSizeFinal"] = (
+                trace[-1] if trace else cfg.transaction_size)
+
+    return scatter_join("htm", r, s, cfg, build, _probe, fields=fields)
 
 
 def _htm_switch_join(r: Relation, s: Optional[Relation],
@@ -320,8 +260,7 @@ def _htm_switch_join(r: Relation, s: Optional[Relation],
     from .adaptive import sniff_statistics
     from .radix import radix_join
 
-    timer = PhaseTimer()
-    dup_frac, max_key = sniff_statistics(r.keys, cfg, timer)
+    dup_frac, max_key, sniff_us = sniff_statistics(r.keys, cfg)
     with span("hj.plan"):
         use_htm = (dup_frac < 0.004
                    and max_key <= 3 * htm_num_buckets(cfg.r_size))
@@ -332,79 +271,41 @@ def _htm_switch_join(r: Relation, s: Optional[Relation],
         m = radix_join(r, s, inner)
         m.algo = "htm"
         m.extra["switchedToRadix"] = True
-    m.firstRoundTime = timer.micros.get("sniff", 0.0)
+    m.firstRoundTime = sniff_us
     m.firstRoundFailureFraction = float(dup_frac)
     return m
 
 
-def _htm_build_pallas(cfg: JoinConfig, r: Relation) -> JoinMetrics:
-    """Build-only banded path (ENABLE_PROBE off, the reference's default
-    binary): the optimistic tile sort is the whole build; violations map to
-    failedTransactions, the bitonic retry to TM_RETRY."""
+def _htm_track_build(r: Relation, cfg: JoinConfig) -> JoinMetrics:
+    """TM_TRACK on the engine's build: the per-tile violation and
+    duplicate-alias vectors ride the build's readback, so the plan comes
+    first (with HTM_ADAPT, the sniff-first dial)."""
     sniff = None
     if cfg.adaptive:
-        if not cfg.track:
-            return _htm_build_pallas_adaptive(cfg, r)
-        # TM_TRACK needs the plan before its per-tile cause vectors join
-        # the readback: the sniff-first variant
         plan, sniff = _adaptive_pallas_plan(r, cfg, probing=False)
     else:
         plan = pallas_plan(cfg, probing=False)
     t0 = time.perf_counter()
-    res = banded_build_pipelined(r.keys, locality_window=plan.window,
-                                 presort=plan.presort,
-                                 presorted=plan.presorted,
-                                 return_tile_violations=cfg.track)
+    out, tile_viols, tile_dups = banded_build_pipelined(
+        r.keys, **plan_args(plan), return_tile_violations=True)
     elapsed_us = (time.perf_counter() - t0) * 1e6
-    if cfg.track:
-        out, tile_viols, tile_dups = res
-        m = pallas_metrics(cfg, "htm", out, elapsed_us, None, plan=plan)
-        # TM_TRACK abort-histogram analog (HTMHashBuild.hpp:134-142): the
-        # per-tile violation fractions of the optimistic sorter, a chunk
-        # being one of the port's tiles (the JAX package divides by its
-        # own 65536-key tile)
-        frac = (tile_viols / DEFAULT_TILE).tolist()
-        m.extra["chunkFailureFractions"] = [float(f) for f in frac[:64]]
-        m.extra["maxChunkFailureFraction"] = float(max(frac)) if frac else 0.0
-        # the reference's "Conflict Reason" split in the engine's failure
-        # modes: displacement past the sorter's reach, a duplicate key
-        # aliasing a slot, band overflow (none without a probe)
-        m.extra["failureCauseDisplacement"] = int(tile_viols.sum())
-        m.extra["failureCauseDuplicateAlias"] = int(tile_dups.sum())
-        m.extra["failureCauseBandOverflow"] = out.overflow_tiles
-        dup_frac = (tile_dups / DEFAULT_TILE).tolist()
-        m.extra["duplicateAliasFractions"] = [float(f) for f in dup_frac[:64]]
-    else:
-        out = res
-        m = pallas_metrics(cfg, "htm", out, elapsed_us, None, plan=plan)
+    m = pallas_metrics(cfg, "htm", out, elapsed_us, None, plan=plan)
+    # TM_TRACK abort-histogram analog (HTMHashBuild.hpp:134-142): the
+    # per-tile violation fractions of the optimistic sorter, a chunk
+    # being one of the port's tiles (the JAX package divides by its
+    # own 65536-key tile)
+    frac = (tile_viols / DEFAULT_TILE).tolist()
+    m.extra["chunkFailureFractions"] = [float(f) for f in frac[:64]]
+    m.extra["maxChunkFailureFraction"] = float(max(frac)) if frac else 0.0
+    # the reference's "Conflict Reason" split in the engine's failure
+    # modes: displacement past the sorter's reach, a duplicate key
+    # aliasing a slot, band overflow (none without a probe)
+    m.extra["failureCauseDisplacement"] = int(tile_viols.sum())
+    m.extra["failureCauseDuplicateAlias"] = int(tile_dups.sum())
+    m.extra["failureCauseBandOverflow"] = out.overflow_tiles
+    dup_frac = (tile_dups / DEFAULT_TILE).tolist()
+    m.extra["duplicateAliasFractions"] = [float(f) for f in dup_frac[:64]]
     if sniff is not None:
-        m.extra["adaptivePlan"] = _dialed_plan_extra(plan, sniff)
-        m.extra["adaptiveTransactionSizeFinal"] = max(1, plan.window or 4096)
+        _adaptive_metrics(m, plan, sniff)
     maybe_pipeline_timing(m, cfg, plan, r, None, out)
-    return m
-
-
-def _htm_join_pallas(r: Relation, s: Relation, cfg: JoinConfig) -> JoinMetrics:
-    """The banded engine as the HTM build+probe: one host readback on the
-    fast path."""
-    if cfg.adaptive:
-        return _htm_join_pallas_adaptive(r, s, cfg)
-    plan = pallas_plan(cfg)
-    t0 = time.perf_counter()
-    # permutation distributions certify both sides unique (S is generated
-    # sorted 1..N)
-    out = banded_join_pipelined(r.keys, s.keys, locality_window=plan.window,
-                                presort=plan.presort,
-                                presorted=plan.presorted, narrow=plan.narrow,
-                                sort_s=not s.assume_sorted,
-                                unique_both=keys_unique_both(cfg))
-    elapsed_us = (time.perf_counter() - t0) * 1e6
-    m = pallas_metrics(cfg, "htm", out, elapsed_us, out.matches, plan=plan,
-                       sort_s=not s.assume_sorted)
-    if cfg.track:
-        # the join path's two failure modes: displacement violations of the
-        # optimistic sorter, band overflow of the count
-        m.extra["failureCauseDisplacement"] = out.violations
-        m.extra["failureCauseBandOverflow"] = out.overflow_tiles
-    maybe_pipeline_timing(m, cfg, plan, r, s, out)
     return m

@@ -17,7 +17,6 @@ searches, and ``totalOverflows`` is the spill's size.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import torch
@@ -27,21 +26,18 @@ from ..ops import insert, probe
 from ..ops.hashing import identity_hash
 from ..relation import Relation, next_pow2
 from ..utils.metrics import JoinMetrics
-from ..utils.profiler import span
-from ..utils.timing import PhaseTimer, readback
-from .banded_backend import banded_join_pipelined
-from .common import (SpillState, finish_metrics, join_scope, keys_unique_both,
-                     pallas_metrics, pallas_plan, resolve_relations,
-                     use_pallas_engine)
+from .common import engine_join, join_scope, scatter_join, use_pallas_engine
 
 BUCKET_SIZE = 2  # npj_params.h:18-20
 
 
-def _build(keys: torch.Tensor, num_buckets: int):
-    table, pending = insert.bucket_build(keys, num_buckets, BUCKET_SIZE,
-                                         identity_hash)
-    return (table, pending, probe.table_sum(table),
-            torch.sum(keys, dtype=torch.int64))
+def _probe(table: torch.Tensor, skeys: torch.Tensor) -> torch.Tensor:
+    return probe.probe_buckets(table, skeys, BUCKET_SIZE, identity_hash)
+
+
+def _overflows(m: JoinMetrics) -> None:
+    """totalOverflows: the engine's flagged tiles, or the spill's size."""
+    m.totalOverflows = m.conflictCount
 
 
 @join_scope
@@ -60,38 +56,12 @@ def npo_st_join(r: Relation, s: Optional[Relation] = None,
 def npo_join(r: Relation, s: Optional[Relation] = None,
              cfg: JoinConfig = JoinConfig()) -> JoinMetrics:
     if use_pallas_engine(cfg, s):
-        plan = pallas_plan(cfg)
-        t0 = time.perf_counter()
-        out = banded_join_pipelined(r.keys, s.keys,
-                                    locality_window=plan.window,
-                                    presort=plan.presort,
-                                    presorted=plan.presorted,
-                                    narrow=plan.narrow,
-                                    sort_s=not s.assume_sorted,
-                                    unique_both=keys_unique_both(cfg))
-        elapsed_us = (time.perf_counter() - t0) * 1e6
-        m = pallas_metrics(cfg, "npo", out, elapsed_us, out.matches,
-                           plan=plan, sort_s=not s.assume_sorted)
-        m.totalOverflows = out.overflow_tiles
-        return m
-    rkeys, skeys = resolve_relations(r, s, cfg)
-    timer = PhaseTimer()
-    with span("hj.build"):
-        table, pending, table_sum, in_sum = timer.timed(
-            "build", _build, rkeys,
-            next_pow2(max(2, cfg.r_size // BUCKET_SIZE)))
-        spill = SpillState(rkeys, pending, timer, head=(table_sum, in_sum))
-    table_sum, in_sum = spill.head
-    matches = None
-    if skeys is not None:
-        with span("hj.probe"):
-            matches = readback(timer.timed(
-                "probe", probe.probe_buckets, table, skeys, BUCKET_SIZE,
-                identity_hash))
-            matches += spill.probe_count(skeys, timer)
-    m = JoinMetrics(algo="npo", rSize=cfg.r_size,
-                    transactionSize=cfg.transaction_size,
-                    probeLength=cfg.probe_length, conflictCount=spill.count,
-                    totalOverflows=spill.count, inputSum=in_sum,
-                    outputSum=table_sum + spill.key_sum)
-    return finish_metrics(m, timer, matches)
+        return engine_join("npo", r, s, cfg, fields=_overflows,
+                           sustained=False)
+
+    def build(keys: torch.Tensor):
+        return insert.bucket_build(
+            keys, next_pow2(max(2, cfg.r_size // BUCKET_SIZE)), BUCKET_SIZE,
+            identity_hash)
+
+    return scatter_join("npo", r, s, cfg, build, _probe, fields=_overflows)

@@ -8,7 +8,7 @@ package:
     partition (``ops/radix_kernels.py``: K2 + K6 a pass), a final tile sort
     (K2, the per-partition build), and the banded probe (K4; K3 first for
     an unsorted probe side);
-  * the engine sort plan, for keys below PACK_LIMIT: ``banded_join_pipelined``
+  * the engine sort plan, for keys below PACK_LIMIT: ``common.engine_join``
     with the global sort first (K3, then K4/K5) when S is larger than a
     tile;
   * the sort route, for wider keys (the random distribution) or the
@@ -30,7 +30,6 @@ import torch
 
 from ..config import JoinConfig
 from ..ops import partition, probe
-from ..ops.global_sort import global_sort_tiles
 from ..ops.radix_kernels import multipass_radix_partition
 from ..ops.sort_tiles import sort_tiles
 from ..relation import Relation
@@ -38,25 +37,15 @@ from ..utils.metrics import JoinMetrics
 from ..utils.profiler import span
 from ..utils.timing import PhaseTimer, fence_outputs, readback
 from .banded_backend import (DEFAULT_TILE, BandedBuild, _key_sum,
-                             banded_join_pipelined, banded_probe,
-                             sort_probe_side, to_tiles_pow2)
-from .common import (BandedPlan, _max_key_bound, finish_metrics,
-                     join_scope, keys_unique_both, maybe_pipeline_timing,
-                     pallas_metrics, resolve_relations, use_pallas_engine)
+                             banded_probe, k3_sort, sort_probe_side)
+from .common import (BandedPlan, _max_key_bound, engine_join, finish_metrics,
+                     join_scope, probes, resolve_relations,
+                     use_pallas_engine)
 
 # The multipass tile below 2^17 keys.  The JAX package takes 1024 there;
 # the port's count kernels need a tile larger than their 1024-key overhang
 # (K4/K5 take 2048 and up), so the port takes 2048.
 SMALL_TILE = 2048
-
-
-def _megakernel_sorter(n: int):
-    """int32 global sort through K3; MAXI32 padding sorts to the tail and
-    is sliced off."""
-    def sorter(keys):
-        padded = to_tiles_pow2(keys, DEFAULT_TILE)
-        return global_sort_tiles(padded, tile=DEFAULT_TILE)[:n]
-    return sorter
 
 
 def _msb_stats(sorted_keys: torch.Tensor, bits: int):
@@ -71,7 +60,7 @@ def _partition_build(keys: torch.Tensor, bits: int, use_megakernel: bool):
     ``radix_partition_msb``).  The sorted array is both the partitioned
     layout and every partition's search structure."""
     if use_megakernel:
-        sorted_r = _megakernel_sorter(keys.numel())(keys)
+        sorted_r = k3_sort(keys)
     else:
         sorted_r = torch.sort(keys).values
     hist, ksum, max_part = _msb_stats(sorted_r, bits)
@@ -112,7 +101,7 @@ def _multipass_radix_join(r: Relation, s: Optional[Relation],
     fence_outputs(head)
     t2 = time.perf_counter()
     matches = None
-    skeys = s.keys if (s is not None and cfg.enable_probe) else None
+    _, skeys = resolve_relations(r, s, cfg)
     if skeys is not None:
         s2d = None
         if not s.assume_sorted:
@@ -156,7 +145,7 @@ def radix_join(r: Relation, s: Optional[Relation] = None,
         # take the sort route below; build-only partitions any int32
         multipass = (cfg.radix_strategy == "multipass"
                      and cfg.backend != "xla"
-                     and (s is None or not cfg.enable_probe
+                     and (not probes(s, cfg)
                           or _max_key_bound(cfg) < (1 << 29)))
         engine = not multipass and use_pallas_engine(cfg, s)
         # the global sort exists only to keep every tile's S band narrow;
@@ -166,24 +155,13 @@ def radix_join(r: Relation, s: Optional[Relation] = None,
     if multipass:
         return _multipass_radix_join(r, s, cfg)
     if engine:
-        # the engine's host work between its own spans, the release of its
-        # buffers on return and the line are the planner's
-        with span("hj.plan"):
-            t0 = time.perf_counter()
-            out = banded_join_pipelined(r.keys, s.keys, presort=presort,
-                                        sort_s=not s.assume_sorted,
-                                        unique_both=keys_unique_both(cfg))
-            elapsed_us = (time.perf_counter() - t0) * 1e6
-            with span("hj.line"):
-                plan = BandedPlan(None, presort, False, None)
-                m = pallas_metrics(cfg, "radix", out, elapsed_us,
-                                   out.matches, plan=plan,
-                                   sort_s=not s.assume_sorted)
-                m.partitionTimeInMicroseconds = elapsed_us
-                m.extra["radixBits"] = cfg.radix_bits
-                m.extra["numPasses"] = cfg.radix_passes
-                maybe_pipeline_timing(m, cfg, plan, r, s, out)
-        return m
+        def fields(m: JoinMetrics) -> None:
+            m.partitionTimeInMicroseconds = m.hashBuildTimeInMicroseconds
+            m.extra["radixBits"] = cfg.radix_bits
+            m.extra["numPasses"] = cfg.radix_passes
+
+        return engine_join("radix", r, s, cfg,
+                           BandedPlan(None, presort, False, None), fields)
     rkeys, skeys = resolve_relations(r, s, cfg)
     use_mk = cfg.backend != "xla" and rkeys.numel() >= (1 << 17)
     timer = PhaseTimer()

@@ -28,25 +28,16 @@ import torch
 
 from ..config import Distribution, JoinConfig
 from ..ops import sortops
-from ..ops.global_sort import global_sort_tiles
 from ..relation import Relation
 from ..utils.metrics import JoinMetrics
 from ..utils.timing import PhaseTimer, fence_outputs, readback
-from .banded_backend import (DEFAULT_TILE, banded_join_pipelined,
-                             sort_probe_side, to_tiles_pow2)
+from .banded_backend import banded_join_pipelined, k3_sort, sort_probe_side
 from .common import (BandedPlan, join_scope, keys_unique_both,
                      pallas_metrics, resolve_relations, use_pallas_engine)
 
 
-def _sort_keys(keys: torch.Tensor) -> torch.Tensor:
-    """The ascending sort of ``keys`` by K3 (MAXI32 padding sorts last and
-    is cut off; keys equal to MAXI32 stay, being equal)."""
-    padded = to_tiles_pow2(keys, DEFAULT_TILE)
-    return global_sort_tiles(padded, tile=DEFAULT_TILE)[:keys.numel()]
-
-
 def _sort(keys: torch.Tensor):
-    s = _sort_keys(keys)
+    s = k3_sort(keys)
     return s, torch.sum(s, dtype=torch.int64)
 
 
@@ -57,7 +48,7 @@ def _engine_join(r: Relation, s: Relation, cfg: JoinConfig) -> JoinMetrics:
     t0 = time.perf_counter()
     # sorted input skips the sort: timsort's O(n) pass on sorted runs
     # (SortMerge.cpp:18)
-    r_sorted = r.keys if sorted_in else _sort_keys(r.keys)
+    r_sorted = r.keys if sorted_in else k3_sort(r.keys)
     if s.assume_sorted:
         skeys_sorted, s2d = s.keys, None
     else:

@@ -218,8 +218,9 @@ SPANS = {
                "joins.DISPATCH entry)",
     "hj.sniff": "issuing a sniff's device chain",
     "hj.plan": "the planner's host work: route, guess, dial, what to do "
-               "after a readback; on the adaptive and radix routes also the "
-               "engine call it made, between the engine's own spans",
+               "after a readback; around an engine call "
+               "(joins.common.engine_join, the dial's replan) also the "
+               "engine's host work between its own spans",
     "hj.enqueue": "issuing the join's device chain",
     "hj.readback": "a host wait on the device, and its copy "
                    "(timing.readback, timing.fence_outputs)",
@@ -228,9 +229,10 @@ SPANS = {
     "hj.recount": "the mass path's recount of a sorted plan's flagged "
                   "tiles in place (a one-key tile from its band's ends, "
                   "K4 over the others' whole bands)",
-    "hj.build": "a scatter build (ops/insert.py): its device chain and "
-                "fence, then the spill's readback and any compaction and "
-                "sort (joins.common.SpillState)",
+    "hj.build": "a scatter build (joins.common.scatter_join, "
+                "ops/insert.py): its device chain and fence, then the "
+                "spill's readback and any compaction and sort "
+                "(joins.common.SpillState)",
     "hj.probe": "a scatter build's probe: the table probe and its fence, "
                 "the spill's probe, and their readbacks",
     "hj.line": "building the join's line, and its dict in the reference "

@@ -41,6 +41,7 @@ from htm_hashjoin_tpu_torch.constants import MAXI32
 from htm_hashjoin_tpu_torch.data.generators import build_relations
 from htm_hashjoin_tpu_torch.joins import DISPATCH
 from htm_hashjoin_tpu_torch.joins import common
+from htm_hashjoin_tpu_torch.joins.banded_backend import banded_join_pipelined
 from htm_hashjoin_tpu_torch.ops import hashing, insert, probe, sortops
 from htm_hashjoin_tpu_torch.relation import Relation, keys_from_numpy
 from htm_hashjoin_tpu_torch.utils.metrics import PORT_ONLY_FIELDS
@@ -344,6 +345,13 @@ DISTS = {
     "pk_fk": dict(data_distr=Distribution.PK, s_distr=Distribution.FK,
                   s_size=2 * N),
 }
+# unique R under a skewed S of 2^18 keys: the port's engine flags R's one
+# 8192-key tile (its band passes 16 chunks) where JAX's 65536-key tile
+# flags none, so only the lines that do not report flagged tiles compare
+SKEWED_S = {"pk_zipf": dict(data_distr=Distribution.PK,
+                            s_distr=Distribution.ZIPF, zipf_param=1.0,
+                            s_size=32 * N)}
+ALL_DISTS = {**DISTS, **SKEWED_S}
 
 
 def jax_cfg(cfg: JoinConfig, backend: str):
@@ -360,7 +368,8 @@ def jax_cfg(cfg: JoinConfig, backend: str):
 @functools.lru_cache(maxsize=None)
 def relations(dist: str, probing: bool):
     """Numpy keys of the port's seeded generators (one set per case)."""
-    cfg = JoinConfig(r_size=N, seed=11, enable_probe=probing, **DISTS[dist])
+    cfg = JoinConfig(r_size=N, seed=11, enable_probe=probing,
+                     **ALL_DISTS[dist])
     r, s = build_relations(cfg)
     return r.to_numpy(), s.to_numpy(), s.assume_sorted
 
@@ -383,7 +392,7 @@ def engine_route(algo: str, cfg: JoinConfig, probing: bool) -> bool:
 def run_join(algo, dist, probing, **changes):
     rk, sk, s_sorted = relations(dist, probing)
     cfg = JoinConfig(algo=Algo(algo), r_size=N, seed=11,
-                     enable_probe=probing, **{**DISTS[dist], **changes})
+                     enable_probe=probing, **{**ALL_DISTS[dist], **changes})
     engine = engine_route(algo, cfg, probing)
     r = Relation(keys_from_numpy(rk))
     s = Relation(keys_from_numpy(sk), assume_sorted=s_sorted)
@@ -464,6 +473,19 @@ def test_nocc_loses_tuples_as_jax_does(dist):
     assert got["outputSum"] == want["outputSum"] < got["inputSum"]
     assert got["totalMatches"] == want["totalMatches"] < \
         reference_match_count(rk, sk)
+
+
+@pytest.mark.parametrize("algo", ["atomic", "nocc"])
+def test_unique_builds_spill_nothing_under_a_skewed_s(algo):
+    """atomic and nocc on unique R take the banded engine; tiles that a
+    skewed S flags in its count are no spill of their table: the line is
+    JAX's, conflicts 0."""
+    got, want, rk, sk, engine = run_join(algo, "pk_zipf", True)
+    flagged = banded_join_pipelined(keys_from_numpy(rk), keys_from_numpy(sk),
+                                    sort_s=True).overflow_tiles
+    assert engine and flagged > 0
+    assert got["conflicts"] == want["conflicts"] == 0
+    assert_join_line(algo, got, want, rk, sk, True, engine)
 
 
 def test_sortmerge_reports_sort_and_merge_apart():

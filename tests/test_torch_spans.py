@@ -55,6 +55,32 @@ CASES = {
 }
 
 
+# each case's hj.* spans in the order entered, as (name, nesting depth),
+# for one join (the test runs two): which span is innermost over each op
+# and host step is what the planner and enqueue metrics read on the card
+_ENGINE = [("hj.join", 0), ("hj.plan", 1), ("hj.plan", 1),
+           ("hj.enqueue", 2), ("hj.readback", 2), ("hj.plan", 2)]
+SPAN_SEQUENCES = {
+    "atomic": [("hj.join", 0), ("hj.build", 1), ("hj.readback", 2),
+               ("hj.readback", 2), ("hj.probe", 1), ("hj.readback", 2),
+               ("hj.readback", 2), ("hj.line", 1)],
+    "fk_uniform": _ENGINE + [("hj.line", 2), ("hj.line", 3)],
+    "shuffle": [("hj.join", 0), ("hj.sniff", 1), ("hj.readback", 1),
+                ("hj.plan", 1), ("hj.plan", 2), ("hj.sniff", 2),
+                ("hj.plan", 2), ("hj.enqueue", 2), ("hj.readback", 2),
+                ("hj.plan", 2), ("hj.plan", 2), ("hj.enqueue", 3),
+                ("hj.readback", 3), ("hj.plan", 3), ("hj.line", 2),
+                ("hj.line", 3), ("hj.line", 2)],
+    "fk_zipf1": _ENGINE + [("hj.line", 2), ("hj.line", 3)],
+    "mass": _ENGINE + [("hj.recount", 2), ("hj.enqueue", 3),
+                       ("hj.enqueue", 3), ("hj.readback", 3),
+                       ("hj.line", 2), ("hj.line", 3)],
+    "repair": _ENGINE + [("hj.repair", 2), ("hj.enqueue", 3),
+                         ("hj.enqueue", 3), ("hj.enqueue", 3),
+                         ("hj.readback", 3), ("hj.line", 2), ("hj.line", 3)],
+}
+
+
 def join_case(name, index=0):
     """(join step, r, s, cfg) of a case, the relations of join ``index``:
     fresh ones for each join, as the benchmark makes them (the dial keeps
@@ -98,6 +124,14 @@ def inside(ev, outer, eps=0.01):
             and ev["ts"] + ev["dur"] <= outer["ts"] + outer["dur"] + eps)
 
 
+def span_sequence(events):
+    """(name, depth) of each span in the order entered, depth being the
+    number of spans around it."""
+    events = sorted(events, key=lambda e: (e["ts"], -e["dur"]))
+    return [(e["name"], sum(inside(e, o) for o in events if o is not e))
+            for e in events]
+
+
 def test_a_span_without_a_profiler_is_one_shared_no_op():
     assert not torch.autograd.profiler._is_profiler_enabled
     assert profiler.span("hj.plan") is profiler.span("hj.line")
@@ -128,6 +162,7 @@ def test_spans_nest_in_one_join_span_and_readbacks_match(name, tmp_path):
         metrics = [fn(r, s, cfg) for fn, r, s, cfg in cases]
     lines = [m.to_dict() for m in metrics]
     events = hj_events(prof, tmp_path)
+    assert span_sequence(events) == SPAN_SEQUENCES[name] * 2
     joins = sorted((e for e in events if e["name"] == "hj.join"),
                    key=lambda e: e["ts"])
     assert len(joins) == len(lines) == 2
