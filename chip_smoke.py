@@ -71,7 +71,12 @@ Phases, one line each:
                 with key 0 at budgets 1, 4 and 6, exactly, then at the hash
                 cell's build (2^27 shuffled keys into 2^28 slots) at budgets
                 4 (reported) and 6, held equal and timed, and split by
-                launch under the profiler; the hash-table
+                launch under the profiler; the table-probe kernel
+                (csrc/hash_probe.cu) against its plain version (the torch
+                gathers) at the hash cell's probe (2^27 sorted S into that
+                table at budget 4; reported), on a shuffled S and on npo's
+                and htm's bucket tables, held equal and timed, and split
+                under the profiler; the hash-table
                 joins and sortmerge: at 2^22 through
                 DISPATCH, nocc, atomic and htm with --backend xla on
                 sorted, shuffle and uniform keys (2^20 distinct), build-only
@@ -89,7 +94,9 @@ Phases, one line each:
                 matches at most the exact ones), zero conflicts on unique
                 keys and the plan's launches of every kernel (one claim
                 kernel build on each scatter build but nocc's and htm's
-                without retry), with a profile of each scatter-build path;
+                without retry, one probe kernel launch on each scatter
+                join that probes), with a profile of each scatter-build
+                path;
  11. wisconsin  - K7 (the key-value radix sort) against its plain version
                 (stable sort + gather) on few-tile cases (one tile, two, 2^3
                 padded, 16 copies a key, rotation-packed keys with shard
@@ -143,7 +150,8 @@ Phases, one line each:
                 2^22 (R key 0, S key INT32_MAX) exact; dryrun_multichip(8);
                 the scaling sweep at its defaults, every point exact;
  14. experiments - entry() (the single-device entry step: one claim
-                kernel build, its retry rounds) on the
+                kernel build, its retry rounds, and one probe kernel
+                launch) on the
                 card equal to the CPU's and to (2^16, 2^16 (2^16 + 1) / 2, 0),
                 and
                 ``python -m htm_hashjoin_tpu_torch.entry``'s main; the
@@ -204,6 +212,7 @@ from htm_hashjoin_tpu_torch.experiments import radix_crossover as rx
 from htm_hashjoin_tpu_torch.harness import GRIDS, report, run_grid, runner
 from htm_hashjoin_tpu_torch.joins import DISPATCH
 from htm_hashjoin_tpu_torch.joins import banded_backend as bb
+from htm_hashjoin_tpu_torch.joins.common import htm_num_buckets
 from htm_hashjoin_tpu_torch.joins.radix import radix_join
 from htm_hashjoin_tpu_torch.ops import _build
 from htm_hashjoin_tpu_torch.ops import banded_count as bc
@@ -211,13 +220,13 @@ from htm_hashjoin_tpu_torch.ops import banded_count_narrow as bcn
 from htm_hashjoin_tpu_torch.ops import fused_sort_count as fsc
 from htm_hashjoin_tpu_torch.ops import global_sort as gs
 from htm_hashjoin_tpu_torch.ops import global_sort_kv as gkv
-from htm_hashjoin_tpu_torch.ops import insert
+from htm_hashjoin_tpu_torch.ops import insert, probe
 from htm_hashjoin_tpu_torch.ops import radix_kernels as rk
 from htm_hashjoin_tpu_torch.ops import scatter_tiles as sct
 from htm_hashjoin_tpu_torch.ops import sort_kv_tiles as skv
 from htm_hashjoin_tpu_torch.ops import sort_tiles as st
 from htm_hashjoin_tpu_torch.ops import tile_minmax as tmm
-from htm_hashjoin_tpu_torch.ops.hashing import identity_hash
+from htm_hashjoin_tpu_torch.ops.hashing import identity_hash, locality_hash
 from htm_hashjoin_tpu_torch.parallel import scaling
 from htm_hashjoin_tpu_torch.parallel.dist_join import distributed_join
 from htm_hashjoin_tpu_torch.parallel.dryrun import dryrun_multichip
@@ -248,6 +257,7 @@ KERNELS = {
     "sort_kv_tiles": (skv, "sort_kv_tiles.cu", f"{JOIN_KERNELS}:561"),
     "global_sort_kv_tiles": (gkv, "radix_sort.cu", f"{JOIN_KERNELS}:701"),
     "claim_insert": (insert, "claim_insert.cu", "none: XLA scatter"),
+    "hash_probe": (probe, "hash_probe.cu", "none: XLA gathers"),
 }
 # kernels on no path, each with the reason: held to their plain versions
 # and timed, but exempt from the check that a path launched them
@@ -1273,13 +1283,71 @@ def _check_claim_insert(dev, card, errs, times) -> None:
     torch.cuda.empty_cache()
 
 
+def _check_hash_probe(dev, card, errs, times) -> None:
+    """The table-probe kernel against its plain version (the torch
+    gathers, ``probe_open_addressing_ref`` and ``probe_buckets_ref``, on
+    the card): the hash cell's probe, 2^27 sorted S keys into the 2^28-slot
+    table that the claim kernel builds from 2^27 shuffled keys, budget 4,
+    held equal and timed (reported; the bound reads each S key and its
+    home slots once, 8 bytes a key); a shuffled S into that table; npo's
+    2-slot and htm's 3-slot bucket tables of the same keys under sorted S;
+    each held equal and timed (printed, not reported), and the cell's
+    probe split under the profiler."""
+    n = 1 << LOG2_N
+    rkeys = shuffled_keys(n, 1, dev)
+    skeys = sorted_keys(n, dev)
+    table, pending = insert.open_addressing_build(rkeys, 2 * n, 4,
+                                                  identity_hash)
+    _require(int(pending.sum()) == 0, "the cell's build spilled")
+    before = probe.LAUNCHES
+    args = (table, skeys, 4, identity_hash)
+    _time_pair("hash_probe", f"2^{LOG2_N} sorted S into 2^{LOG2_N + 1} "
+               f"slots, budget 4",
+               lambda: probe.probe_open_addressing(*args),
+               lambda: probe.probe_open_addressing_ref(*args), errs, times,
+               card, (skeys, table[:n]))
+    _require(int(probe.probe_open_addressing(*args)) == n,
+             "the cell's probe did not find every S key")
+    ops = _device_ops(lambda: probe.probe_open_addressing(*args))
+    print(f"kernel: hash_probe at 2^{LOG2_N} budget 4, one profiled call: "
+          f"{sum(t for _, t in ops):.4f} ms busy in {len(ops)} ops: "
+          f"{', '.join(f'{name} {t:.4f}' for name, t in ops)} [{card}]")
+    shuffled = shuffled_keys(n, 2, dev)
+    args = (table, shuffled, 4, identity_hash)
+    _time_pair("hash_probe", f"2^{LOG2_N} shuffled S into 2^{LOG2_N + 1} "
+               f"slots, budget 4",
+               lambda: probe.probe_open_addressing(*args),
+               lambda: probe.probe_open_addressing_ref(*args), errs, times,
+               card, (shuffled, table[:n]), keep=False)
+    del table, pending, shuffled, args
+    torch.cuda.empty_cache()
+    npo_table, _ = insert.bucket_build(rkeys, n // 2, 2, identity_hash)
+    htm_table = insert.htm_optimistic_build(
+        rkeys, htm_num_buckets(n)).table
+    for what, table, slots, hash_fn in (
+            ("npo's 2-slot buckets", npo_table, 2, identity_hash),
+            ("htm's 3-slot buckets", htm_table, 3, locality_hash)):
+        args = (table, skeys, slots, hash_fn)
+        _time_pair("hash_probe", f"2^{LOG2_N} sorted S into {what}",
+                   lambda: probe.probe_buckets(*args),
+                   lambda: probe.probe_buckets_ref(*args), errs, times,
+                   card, (skeys, table[:n]), keep=False)
+    times["hash_probe"]["kernel_phase_launches"] = probe.LAUNCHES - before
+    print(f"kernel: hash_probe launches in its kernel phase "
+          f"{probe.LAUNCHES - before} [{card}]")
+    del rkeys, skeys, npo_table, htm_table, args
+    torch.cuda.empty_cache()
+
+
 def _hash_joins(dev, card, errs, times) -> dict:
-    """The claim kernel against its plain version; the hash-table joins
-    and sortmerge: the card against the CPU at 2^22, then the reference's
-    own points at 2^27 through cli.main, each line checked (exact matches,
-    conservation or nocc's inequalities, conflicts on unique keys, every
-    kernel's launches), with a profile of each scatter-build path."""
+    """The claim and probe kernels against their plain versions; the
+    hash-table joins and sortmerge: the card against the CPU at 2^22, then
+    the reference's own points at 2^27 through cli.main, each line checked
+    (exact matches, conservation or nocc's inequalities, conflicts on
+    unique keys, every kernel's launches), with a profile of each
+    scatter-build path."""
     _check_claim_insert(dev, card, errs, times)
+    _check_hash_probe(dev, card, errs, times)
     _hash_lines_equal_the_cpu(dev)
     n = 1 << LOG2_N
     total = dict.fromkeys(KERNELS, 0)
@@ -1287,9 +1355,11 @@ def _hash_joins(dev, card, errs, times) -> dict:
                   "--backend", "xla"]
     runs = []     # (argv, launches, a scatter build or the plain route)
     # the claim kernel builds atomic's table, npo's buckets and htm's retry
-    # rounds (none with --noRetry); nocc's rounds are torch ops
+    # rounds (none with --noRetry); nocc's rounds are torch ops; the probe
+    # kernel probes every scatter table
     claims = {"nocc": {}, "atomic": {"claim_insert": 1},
               "htm": {"claim_insert": 1}}
+    probes = {algo: {**c, "hash_probe": 1} for algo, c in claims.items()}
     for algo in ("nocc", "atomic", "htm"):       # AtomicsVsHTMVsNoCC
         for dist in ("sorted", "shuffle"):
             runs.append((["--algo", algo, "--dataDistr", dist,
@@ -1299,17 +1369,17 @@ def _hash_joins(dev, card, errs, times) -> dict:
     for algo in ("nocc", "atomic", "htm"):       # probe.sh's first point
         runs.append((["--algo", algo, "--backend", "xla", "--dataDistr",
                       "local_shuffle", "--shuffleRange", "16"],
-                     claims[algo], True))
+                     probes[algo], True))
     for algo in ("nocc", "atomic"):              # duplicates, 2^24 distinct
         runs.append((["--algo", algo, "--dataDistr", "uniform",
-                      "--distinctKeys", str(n >> 3)], claims[algo], True))
+                      "--distinctKeys", str(n >> 3)], probes[algo], True))
     runs += [
         (["--algo", "htm", "--dataDistr", "uniform", "--distinctKeys",
           str(n >> 3)], {"global_sort_tiles": 1, "banded_count": 1}, False),
         (["--algo", "NPO", "-r", str(n), "-s", str(n)],
          {"global_sort_tiles": 2, "banded_count_narrow": 1}, False),
         (["--algo", "NPO_st", "-r", str(n), "-s", str(n)],
-         {"claim_insert": 1}, True),
+         {"claim_insert": 1, "hash_probe": 1}, True),
         (["--algo", "sortmerge", "--dataDistr", "shuffle"],
          {"global_sort_tiles": 1, "banded_count_narrow": 1}, False),
         (["--algo", "sortmerge", "--dataDistr", "random"],
@@ -2040,11 +2110,13 @@ def _distributed_small(dev, card, total) -> None:
 
 def _entry_step(dev, card, total) -> None:
     """entry() on the card against the CPU's and the expected numbers (the
-    claim kernel its only kernel, once, for the retry rounds), then ``python -m htm_hashjoin_tpu_torch.entry``'s
+    claim kernel once, for the retry rounds, and the probe kernel once, its
+    only kernels), then ``python -m htm_hashjoin_tpu_torch.entry``'s
     main: the step and dryrun_multichip(8) under a mapping of its own."""
     fn, args = entry(dev)
     res = {}
-    expect = {"claim_insert": 1}      # the retry rounds, nothing else
+    # the retry rounds and the bucket probe, nothing else
+    expect = {"claim_insert": 1, "hash_probe": 1}
     counts = _run_path("entry() 2^16", lambda: res.setdefault(
         "out", tuple(int(x) for x in fn(*args))), expect, card)
     for k, v in counts.items():

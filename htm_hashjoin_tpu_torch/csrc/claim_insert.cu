@@ -88,6 +88,7 @@
 // does not depend on it, and the spill is written back by row.
 
 #include "banded_common.cuh"
+#include "hash_table.cuh"
 
 namespace {
 
@@ -113,34 +114,8 @@ constexpr unsigned char kLanded = 2;
 // cost round 0 a tenth of its time).
 constexpr int kAux = kParts + 4 + (1 << kClassBits);
 constexpr int kTwoStepBlocks = 2048;   // the claim path's grid, when idle
-constexpr int kIdentityHash = 1;       // else 2: locality; 0: handed over
-constexpr int kLocalityHash = 2;
 static_assert(kTileRows <= 1 << kRankBits, "rank bits");
 static_assert(kParts <= kPartThreads && kParts % 32 == 0, "one run a thread");
-
-// How the rows of a build find their slots.
-struct SlotRule {
-    int kind;         // kIdentityHash, kLocalityHash, or 0: h handed over
-    unsigned mask;    // the hash's mask
-    int stride;       // 0: open addressing; else the slots of a bucket
-};
-
-__device__ __forceinline__ unsigned hash_of(int key, int given,
-                                            const SlotRule& r) {
-    if (r.kind == kIdentityHash) return static_cast<unsigned>(key) & r.mask;
-    if (r.kind == kLocalityHash) {
-        int q = key / 3;
-        if (key % 3 < 0) --q;          // floor, as torch's // on int32
-        return static_cast<unsigned>(q) & r.mask;
-    }
-    return static_cast<unsigned>(given) & r.mask;
-}
-
-__device__ __forceinline__ unsigned slot_of(unsigned h, int j,
-                                            const SlotRule& r) {
-    return r.stride ? h * static_cast<unsigned>(r.stride) + j
-                    : (h + j) & r.mask;
-}
 
 // Histogram of the rows to place (todo, or all if null) by the run of
 // their first slot (slot >> shift); a key 0 among them sets *two_step.

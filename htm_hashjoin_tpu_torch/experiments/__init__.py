@@ -13,19 +13,20 @@ from __future__ import annotations
 from typing import Dict
 
 from ..ops import (banded_count, banded_count_narrow, fused_sort_count,
-                   global_sort, global_sort_kv, insert, scatter_tiles,
+                   global_sort, global_sort_kv, insert, probe, scatter_tiles,
                    sort_kv_tiles, sort_tiles)
 
 RESULTS_DIR = "experiments/results_torch"
 
-# each kernel wrapper by name (K1-K7, K7a, the claim rounds): its LAUNCHES
-# counts the calls that launched its kernel
+# each kernel wrapper by name (K1-K7, K7a, the claim rounds, the table
+# probe): its LAUNCHES counts the calls that launched its kernel
 _WRAPPERS = {"fused_sort_count": fused_sort_count, "sort_tiles": sort_tiles,
              "global_sort_tiles": global_sort,
              "banded_count": banded_count,
              "banded_count_narrow": banded_count_narrow,
              "scatter_tiles": scatter_tiles, "sort_kv_tiles": sort_kv_tiles,
-             "global_sort_kv_tiles": global_sort_kv, "claim_insert": insert}
+             "global_sort_kv_tiles": global_sort_kv, "claim_insert": insert,
+             "hash_probe": probe}
 
 
 def kernel_launches() -> Dict[str, int]:

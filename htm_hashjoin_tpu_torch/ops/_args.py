@@ -7,6 +7,8 @@ lie on a CUDA device, and raises on any other device; nothing falls back.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import _build
@@ -73,6 +75,11 @@ def aligned(fn: str, **tensors: torch.Tensor) -> None:
     for name, x in tensors.items():
         if x.data_ptr() % 16:
             raise ValueError(f"{fn}: {name} must be 16-byte aligned")
+
+
+def ptr(x: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's address for a launch, or None (a null pointer)."""
+    return None if x is None else x.data_ptr()
 
 
 def launch(fn: str, entry: str, device: torch.device, *args) -> None:

@@ -118,6 +118,7 @@ def load_library() -> ctypes.CDLL:
         "htm_radix_sort_pairs": [p, p, p, p, p, p, p, i64, i64, p],
         "htm_claim_insert": [p, p, i, i64, i64, i, i, p, p, i64, p, i64, p,
                              p, p],
+        "htm_hash_probe": [p, p, i, i64, i64, i, i, p, p, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -29,6 +29,20 @@ def identity_hash(keys: torch.Tensor, mask: int) -> torch.Tensor:
     return keys & mask
 
 
+# the hashes that the scatter tables' kernels compute themselves, by their
+# kind there (csrc/hash_table.cuh)
+_KERNEL_KINDS = {identity_hash: 1, locality_hash: 2}
+
+
+def kernel_hash(keys: torch.Tensor, hash_fn, mask: int):
+    """(kind, h) for a scatter-table kernel: the hash's kind and None where
+    the kernel computes it itself, else 0 and the int32 hash values it is
+    handed."""
+    kind = _KERNEL_KINDS.get(hash_fn, 0)
+    return kind, (None if kind else
+                  hash_fn(keys, mask).to(torch.int32).contiguous())
+
+
 def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
     """(h * c) mod 2^32 for h in [0, 2^32), in int64 without overflow: the
     constant is split into 16-bit halves, so no product reaches 2^48."""

@@ -76,7 +76,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from . import _args, _build
-from .hashing import identity_hash, locality_hash
+from .hashing import kernel_hash, locality_hash
 
 EMPTY = 0   # keys are >= 1 (generators emit 1..N); 0 marks an empty slot
 KEY_DTYPE = torch.int32
@@ -84,9 +84,6 @@ CLAIM_ROWS = 0   # rows handed to the claim step, idle rows included (the
                  # line's claimRows, joins.common.join_scope)
 LAUNCHES = 0   # builds whose claim rounds ran the kernel (the plain path
                # adds none)
-# hashes the kernel computes itself (its hash kind); it is handed any other
-# hash's values as int32
-_KERNEL_HASHES = {identity_hash: 1, locality_hash: 2}
 
 HashFn = Callable[[torch.Tensor, int], torch.Tensor]
 
@@ -169,10 +166,6 @@ def _insert_rounds(table, claim, keys, slots, pending):
     return table, pending
 
 
-def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
-    return None if x is None else x.data_ptr()
-
-
 def _kernel_rounds(fn: str, keys: torch.Tensor, hash_fn: HashFn, mask: int,
                    stride: int, rounds: int, size: int,
                    pending: Optional[torch.Tensor] = None,
@@ -190,16 +183,15 @@ def _kernel_rounds(fn: str, keys: torch.Tensor, hash_fn: HashFn, mask: int,
     if size > 1 << 31 or n >= 1 << 31:
         raise ValueError(f"{fn}: the kernel takes at most 2^31 slots and "
                          f"2^31 - 1 keys, got {size} and {n}")
-    kind = _KERNEL_HASHES.get(hash_fn, 0)
-    hvec = (None if kind else
-            hash_fn(keys, mask).to(torch.int32).contiguous())
+    kind, hvec = kernel_hash(keys, hash_fn, mask)
     words = _build.load_library().htm_claim_insert_scratch_words(n, size,
                                                                  kind)
     scratch = torch.empty(words, dtype=torch.int64, device=dev)
     table = torch.empty(size, dtype=KEY_DTYPE, device=dev)
     out = torch.empty(n, dtype=torch.bool, device=dev)
-    _args.launch(fn, "htm_claim_insert", dev, keys.data_ptr(), _ptr(hvec),
-                 kind, n, mask, stride, rounds, _ptr(pending), _ptr(seed),
+    _args.launch(fn, "htm_claim_insert", dev, keys.data_ptr(),
+                 _args.ptr(hvec), kind, n, mask, stride, rounds,
+                 _args.ptr(pending), _args.ptr(seed),
                  size, scratch.data_ptr(), words, table.data_ptr(),
                  out.data_ptr())
     LAUNCHES += 1

@@ -1,10 +1,17 @@
 """Probe-phase primitives (counterpart of ``htm_hashjoin_tpu/ops/probe.py``):
-batched gathers against the scatter builds' tables, and multiset match
-counts from one sorted stream of tagged keys.  These are the torch glue
-around the kernels, not kernels themselves (the JAX package leaves them to
-XLA).  The reference probes are serial loops per probe tuple: linear scans
-over open-addressing slots (AtomicHashBuild.hpp:69-86) and bucket walks
-(HTMHashBuild.hpp:288-308, mc/src/no_partitioning_join.c:270-310)."""
+the scatter tables' probe, and multiset match counts from one sorted stream
+of tagged keys.  The reference probes are serial loops per probe tuple:
+linear scans over open-addressing slots (AtomicHashBuild.hpp:69-86) and
+bucket walks (HTMHashBuild.hpp:288-308, mc/src/no_partitioning_join.c:
+270-310).
+
+**On CUDA tensors the table probe runs a kernel** (``csrc/hash_probe.cu``,
+one launch a probe): every S key's slots read in int32 and counted in one
+pass, through the slot rule of the build's claim kernel.  The JAX package
+leaves the probe to XLA's gathers; the torch loops of gathers over int64
+slot vectors (``probe_open_addressing_ref``, ``probe_buckets_ref``) are the
+kernel's plain version and run on CPU tensors, and the count is theirs,
+exactly.  The rest of this module is torch glue."""
 
 from __future__ import annotations
 
@@ -12,14 +19,55 @@ from typing import Callable
 
 import torch
 
+from . import _args
+from .hashing import kernel_hash
+
 HashFn = Callable[[torch.Tensor, int], torch.Tensor]
+
+LAUNCHES = 0   # probes that ran the kernel (the plain path adds none)
+
+
+def _kernel_probe(fn: str, table: torch.Tensor, skeys: torch.Tensor,
+                  hash_fn: HashFn, mask: int, stride: int,
+                  probes: int) -> torch.Tensor:
+    """The table probe on the card (``csrc/hash_probe.cu``): the matches
+    of each S key among its ``probes`` slots (h + j) & mask (``stride`` 0)
+    or h * stride + j, h = ``hash_fn(skeys, mask)`` in [0, mask], as an
+    int64 device scalar."""
+    global LAUNCHES
+    dev = _args.int32_vectors(fn, table=table, skeys=skeys)
+    if table.numel() > 1 << 31 or skeys.numel() >= 1 << 31:
+        raise ValueError(f"{fn}: the kernel takes at most 2^31 slots and "
+                         f"2^31 - 1 keys, got {table.numel()} and "
+                         f"{skeys.numel()}")
+    kind, hvec = kernel_hash(skeys, hash_fn, mask)
+    out = torch.empty((), dtype=torch.int64, device=dev)
+    _args.launch(fn, "htm_hash_probe", dev, skeys.data_ptr(),
+                 _args.ptr(hvec), kind, skeys.numel(), mask, stride, probes,
+                 table.data_ptr(), out.data_ptr())
+    LAUNCHES += 1
+    return out
 
 
 def probe_open_addressing(table: torch.Tensor, skeys: torch.Tensor,
                           probe_length: int, hash_fn: HashFn) -> torch.Tensor:
     """Matches (int64 device scalar) of a scan of ``probe_length`` slots
     from h (AtomicHashBuild.hpp:69-86); never more than table_size slots,
-    which would revisit one."""
+    which would revisit one.  The kernel's count on CUDA tensors, the
+    plain version's (``probe_open_addressing_ref``) on CPU tensors."""
+    if _args.runs_kernel("probe_open_addressing", skeys.device):
+        size = table.numel()
+        return _kernel_probe("probe_open_addressing", table, skeys, hash_fn,
+                             max(size - 1, 0), 0,
+                             max(min(probe_length, size), 0))
+    return probe_open_addressing_ref(table, skeys, probe_length, hash_fn)
+
+
+def probe_open_addressing_ref(table: torch.Tensor, skeys: torch.Tensor,
+                              probe_length: int,
+                              hash_fn: HashFn) -> torch.Tensor:
+    """Plain torch version of ``probe_open_addressing`` (any device): one
+    gather over an int64 slot vector a slot."""
     table_size = table.numel()
     mask = table_size - 1
     h = hash_fn(skeys, mask).to(torch.int64)
@@ -33,7 +81,23 @@ def probe_buckets(table: torch.Tensor, skeys: torch.Tensor, slots: int,
                   hash_fn: HashFn) -> torch.Tensor:
     """Matches (int64 device scalar) against an S-slot bucket table
     (HTMHashBuild.hpp:288-308 without the overflow chain: the spilled
-    tuples are probed apart, see ``joins/common.SpillState``)."""
+    tuples are probed apart, see ``joins/common.SpillState``): the
+    kernel's count on CUDA tensors, the plain version's
+    (``probe_buckets_ref``) on CPU tensors."""
+    if _args.runs_kernel("probe_buckets", skeys.device):
+        num_buckets = table.numel() // slots
+        if num_buckets < 1:
+            raise ValueError(f"probe_buckets: a table of {table.numel()} "
+                             f"slots holds no bucket of {slots}")
+        return _kernel_probe("probe_buckets", table, skeys, hash_fn,
+                             num_buckets - 1, slots, slots)
+    return probe_buckets_ref(table, skeys, slots, hash_fn)
+
+
+def probe_buckets_ref(table: torch.Tensor, skeys: torch.Tensor, slots: int,
+                      hash_fn: HashFn) -> torch.Tensor:
+    """Plain torch version of ``probe_buckets`` (any device): one gather
+    over an int64 slot vector an intra-bucket slot."""
     num_buckets = table.numel() // slots
     base = hash_fn(skeys, num_buckets - 1).to(torch.int64) * slots
     total = torch.zeros((), dtype=torch.int64, device=skeys.device)

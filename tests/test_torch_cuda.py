@@ -5,8 +5,8 @@ exactly, the join
 plans that run them, the multipass radix join, one CLI run per path the
 planner chooses, and each scatter build's join (nocc, atomic, htm, npo,
 npo_st; sortmerge's plain route) with the card's line equal to the CPU's;
-K7a (the TPU's kv phase A) bit for bit at every kernel tile in both
-directions, the Wisconsin kv split and three multijoin confs at a cut
+the scatter tables' claim rounds and probe against theirs, K7a (the TPU's
+kv phase A) bit for bit at every kernel tile in both directions, the Wisconsin kv split and three multijoin confs at a cut
 scale, and the distributed join's four configurations (eight shards on the
 card) with the card's line equal to the CPU's.
 
@@ -18,6 +18,7 @@ no jax, so it runs where jax is absent:
 (``--noconftest``: the suite's conftest configures jax for the CPU.)
 """
 
+import dataclasses
 import json
 
 import pytest
@@ -39,7 +40,7 @@ from htm_hashjoin_tpu_torch.ops import banded_count_narrow as bcn
 from htm_hashjoin_tpu_torch.ops import fused_sort_count as fsc
 from htm_hashjoin_tpu_torch.ops import global_sort as gs
 from htm_hashjoin_tpu_torch.ops import global_sort_kv as gkv
-from htm_hashjoin_tpu_torch.ops import hashing, insert
+from htm_hashjoin_tpu_torch.ops import hashing, insert, probe
 from htm_hashjoin_tpu_torch.ops import radix_kernels as rk
 from htm_hashjoin_tpu_torch.ops import radix_sort as rs
 from htm_hashjoin_tpu_torch.ops import scatter_tiles as sct
@@ -752,6 +753,140 @@ def test_atomic_join_runs_the_claim_kernel(dev):
     assert got["claimRows"] == 4 * cfg.r_size
     assert got["totalMatches"] == cfg.r_size
     assert got["inputSum"] == got["outputSum"]
+
+
+def probe_keys(kind, m, rkeys, seed):
+    """m S keys for the table probe: 1..m in order; 1..m shuffled; or edge
+    keys, shuffled: half drawn from R, the rest 0 (EMPTY, which counts the
+    empty slots it scans), INT32_MIN, INT32_MAX, negatives and draws over
+    all of int32."""
+    dev = rkeys.device
+    if kind == "sorted":
+        return sorted_keys(m, dev)
+    if kind == "shuffled":
+        return shuffled_keys(m, seed, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    half = rkeys[torch.randint(0, rkeys.numel(), (m // 2,), generator=gen,
+                               device=dev)]
+    wide = torch.randint(-(1 << 31), 1 << 31, (m - m // 2,), generator=gen,
+                         device=dev, dtype=torch.int64).to(torch.int32)
+    wide[::5], wide[1::5], wide[2::5] = 0, -(1 << 31), MAXI32
+    wide[3::5] = -(wide[3::5].abs() % 9) - 1
+    keys = torch.cat([half, wide])
+    return keys[torch.randperm(m, generator=gen, device=dev)]
+
+
+def assert_probe_equals_the_plain_version(probe_fn, ref_fn, table, skeys,
+                                          *args):
+    """``probe_fn(table, skeys, *args)`` on the card: one kernel launch, an
+    int64 device scalar equal to the plain version's count on the card and
+    on the CPU."""
+    launches = probe.LAUNCHES
+    got = probe_fn(table, skeys, *args)
+    torch.cuda.synchronize()
+    assert probe.LAUNCHES == launches + 1
+    assert got.is_cuda and got.dtype == torch.int64 and got.dim() == 0
+    cpu = probe_fn(table.cpu(), skeys.cpu(), *args)
+    assert probe.LAUNCHES == launches + 1
+    assert int(got) == int(ref_fn(table, skeys, *args)) == int(cpu)
+    return int(got)
+
+
+@pytest.mark.parametrize("kind,n,size,budget,hash_fn,s_kind", [
+    ("shuffled", 1 << 20, 1 << 21, 4, hashing.identity_hash, "sorted"),
+    ("shuffled", 1 << 18, 1 << 19, 1, hashing.identity_hash, "shuffled"),
+    ("shuffled", 1 << 18, 1 << 19, 6, hashing.identity_hash, "edges"),
+    ("uniform", (1 << 18) + 9, 1 << 17, 4, hashing.identity_hash, "edges"),
+    ("uniform", 1000, 16, 40, hashing.identity_hash, "edges"),
+    ("signed", 1 << 18, 1 << 18, 4, hashing.locality_hash, "edges"),
+    ("shuffled", 1 << 18, 1 << 19, 4, murmur_hash, "shuffled"),
+    ("uniform", 1 << 18, 1 << 17, 6, murmur_hash, "edges"),
+    ("zeros", 1 << 16, 1 << 17, 4, hashing.identity_hash, "edges"),
+    ("uniform", 100, 1, 4, hashing.identity_hash, "edges"),
+    ("uniform", 100, 2, 4, hashing.identity_hash, "edges")])
+def test_probe_kernel_open_addressing_equals_the_plain_version(
+        dev, kind, n, size, budget, hash_fn, s_kind):
+    """``probe_open_addressing`` on the card against its plain version on
+    a kernel-built table: the cell's shape at 2^20 (sorted S), budgets 1,
+    4 and 6 and one above the table's 16 slots, tables of 1 and 2 slots,
+    duplicates that fill the spill, signed keys under the locality hash,
+    the handed-over murmur hash, a table holding key 0, an unsorted S, and
+    S keys 0 (against empty slots), INT32_MIN, INT32_MAX and negatives."""
+    rkeys = claim_keys(kind, n, dev, seed=n % 89)
+    table, pending = insert.open_addressing_build(rkeys, size, budget,
+                                                  hash_fn)
+    if kind == "uniform":
+        assert int(pending.sum()) > 0
+    skeys = probe_keys(s_kind, n + 3, rkeys, seed=size % 97)
+    got = assert_probe_equals_the_plain_version(
+        probe.probe_open_addressing, probe.probe_open_addressing_ref, table,
+        skeys, budget, hash_fn)
+    assert got > 0 or size < 16
+    if s_kind == "sorted":
+        assert got == n
+
+
+@pytest.mark.parametrize("kind,n,slots,shrink,hash_fn,s_kind", [
+    ("shuffled", 1 << 18, 2, 1, hashing.identity_hash, "sorted"),    # npo
+    ("shuffled", (1 << 18) + 1, 3, 1, hashing.locality_hash, "sorted"),
+    ("uniform", 1 << 18, 3, 2, hashing.locality_hash, "edges"),
+    ("signed", 1 << 18, 2, 4, murmur_hash, "shuffled"),
+    ("zeros", (1 << 18) + 7, 2, 4, hashing.identity_hash, "edges")])
+def test_probe_kernel_buckets_equals_the_plain_version(dev, kind, n, slots,
+                                                       shrink, hash_fn,
+                                                       s_kind):
+    """``probe_buckets`` on the card against its plain version on a
+    kernel-built table of 2- and 3-slot buckets (npo's, htm's), each hash
+    kind, duplicates that fill the spill, and edge S keys."""
+    rkeys = claim_keys(kind, n, dev, seed=slots)
+    nb = 1 << ((n // 2 // shrink).bit_length() - 1)
+    table, pending = insert.bucket_build(rkeys, nb, slots, hash_fn)
+    skeys = probe_keys(s_kind, n, rkeys, seed=slots + shrink)
+    got = assert_probe_equals_the_plain_version(
+        probe.probe_buckets, probe.probe_buckets_ref, table, skeys, slots,
+        hash_fn)
+    assert got > 0
+    if s_kind == "sorted" and int(pending.sum()) == 0:
+        assert got == n
+
+
+@pytest.mark.parametrize("start,length", [
+    (0, 0), (0, 1), (0, 2), (0, 3), (0, 5), (0, 7), (0, 1023), (1, 1),
+    (1, 4), (1, 1022), (2, 1021), (3, 1020), (1, 5), (3, 0)])
+def test_probe_kernel_on_short_and_misaligned_s(dev, start, length):
+    """S of length 0, 1 and lengths that are no multiple of the kernel's
+    four keys a load, and views that start off a 16-byte boundary
+    (``skeys[1:]`` and the like): each key counted once, in both
+    addressings, equal to the plain version."""
+    rkeys = claim_keys("uniform", 1 << 12, dev, seed=7)
+    base = probe_keys("edges", 1024, rkeys, seed=start + length)
+    skeys = base[start:start + length]
+    assert skeys.is_contiguous()
+    table, _ = insert.open_addressing_build(rkeys, 1 << 11, 4,
+                                            hashing.identity_hash)
+    assert_probe_equals_the_plain_version(
+        probe.probe_open_addressing, probe.probe_open_addressing_ref, table,
+        skeys, 4, hashing.identity_hash)
+    table, _ = insert.bucket_build(rkeys, 1 << 10, 3, hashing.locality_hash)
+    assert_probe_equals_the_plain_version(
+        probe.probe_buckets, probe.probe_buckets_ref, table, skeys, 3,
+        hashing.locality_hash)
+
+
+def test_atomic_join_runs_the_probe_kernel(dev):
+    """The hash cell's path at 2^20: one probe kernel launch a probing
+    scatter join, none on a build-only one."""
+    cfg = JoinConfig(algo=Algo.ATOMIC, r_size=1 << 20, backend="xla",
+                     data_distr=Distribution.SHUFFLE)
+    r, s = build_relations(cfg, dev)
+    before = probe.LAUNCHES
+    got = DISPATCH["atomic"](r, s, cfg).to_dict()
+    assert probe.LAUNCHES == before + 1
+    assert got["totalMatches"] == cfg.r_size
+    build_only = dataclasses.replace(cfg, enable_probe=False)
+    DISPATCH["atomic"](r, None, build_only)
+    assert probe.LAUNCHES == before + 1
 
 
 def scatter_case(keys, tile, fanout, shift, align=False):

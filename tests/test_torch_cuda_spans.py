@@ -7,7 +7,7 @@ a test run holds (``joinbench`` makes the relations), and on the mass path
 and the batched repair (S piled on R's first six tiles, of 16 and of 128).
 On the hash cell's path (the atomic table), every device operation of the
 join lies inside ``hj.build`` or ``hj.probe``, which the benchmark's two
-hash-table rooflines read.
+hash-table rooflines read, and the probe launches one kernel.
 
 Needs a CUDA device and nvcc; elsewhere every test skips.  The file
 imports no jax:
@@ -133,7 +133,9 @@ def test_the_hash_tables_device_work_lies_in_its_build_and_probe(dev,
     build's fence and the spill's readback, the probe's fence and its
     readback) in ``hj.readback`` spans.  Two of those spans lie within a
     copy's slack of each other here, so a copy is held to lie in one at
-    least."""
+    least.  The probe is one ``hash_probe`` kernel launched in
+    ``hj.probe``, and no torch op (elementwise, gather or sum) is launched
+    there."""
     fn, r, s, cfg = pair("hash", 2, dev)
     fn(r, s, cfg)                       # warms up
     del r, s
@@ -160,6 +162,16 @@ def test_the_hash_tables_device_work_lies_in_its_build_and_probe(dev,
     in_probe = [covers(probe, e, SLACK_US) for e in ops]
     assert any(in_build) and any(in_probe)
     assert all(map(max, in_build, in_probe))
+    # the kernels whose launch call lies in hj.probe (the host's clock; a
+    # kernel is tied to its launch by the correlation id): the probe's
+    # kernel alone
+    launched = {e.get("args", {}).get("correlation") for e in events
+                if e.get("cat") == "cuda_runtime"
+                and within(e["ts"], probe)} - {None}
+    probe_kernels = [e["name"] for e in events if e.get("cat") == "kernel"
+                        and e.get("args", {}).get("correlation") in launched]
+    assert len(probe_kernels) == 1, probe_kernels
+    assert "hash_probe_kernel" in probe_kernels[0]
     readbacks = [e for e in events if e["name"] == "hj.readback"]
     copies = [e for e in ops if e["name"].startswith("Memcpy DtoH")]
     waits = [e for e in events if e.get("cat") == "cuda_runtime"

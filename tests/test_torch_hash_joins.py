@@ -267,8 +267,10 @@ def test_spill_is_the_jax_spill_compacted(kind):
 @pytest.mark.parametrize("kind", KINDS)
 def test_probes_match_jax(kind):
     """The bucket and open-addressing probes count the same matches of the
-    same tables; the sorted merge count equals JAX's and numpy's."""
+    same tables, through the plain version on CPU tensors (no kernel
+    launch); the sorted merge count equals JAX's and numpy's."""
     n = 1 << 13
+    launches = probe.LAUNCHES
     keys = keys_of(kind, n, seed=8)
     probe_keys = np.concatenate([keys[::3], keys_of("unique", n, seed=9)])
     t, j = both(keys)
@@ -290,12 +292,81 @@ def test_probes_match_jax(kind):
         jtable, _ = jinsert.bucket_build(j, n // 2, slots, jhash_fn)
         assert int(probe.probe_buckets(table, st, slots, hash_fn)) == \
             int(jprobe.probe_buckets(jtable, sj, slots, jhash_fn))
+    assert probe.LAUNCHES == launches
     got = int(sortops.merge_count(torch.sort(t).values,
                                   torch.sort(st).values))
     assert got == int(jsortops.merge_count(jnp.sort(j), jnp.sort(sj))) == \
         reference_match_count(keys, probe_keys)
     # the spill's probe: a sorted build side, the probe side as it comes
     assert int(sortops.merge_count(torch.sort(t).values, st)) == got
+
+
+def murmur_hash(keys, mask):
+    return hashing.murmur32(keys) & mask
+
+
+def jmurmur_hash(keys, mask):
+    return jhashing.murmur32(keys) & mask
+
+
+HASHES = {"identity": (hashing.identity_hash, jhashing.identity_hash),
+          "locality": (hashing.locality_hash, jhashing.locality_hash),
+          "murmur": (murmur_hash, jmurmur_hash)}
+
+
+@pytest.mark.parametrize("addressing,size,budget,hash_name", [
+    ("open", 1 << 10, 1, "identity"), ("open", 1 << 10, 4, "identity"),
+    ("open", 1 << 10, 6, "identity"), ("open", 16, 40, "identity"),
+    ("open", 1, 4, "identity"), ("open", 2, 4, "identity"),
+    ("open", 1 << 10, 4, "locality"), ("open", 1 << 10, 4, "murmur"),
+    ("buckets", 1 << 10, 2, "identity"), ("buckets", 3 << 9, 3, "locality"),
+    ("buckets", 1 << 10, 2, "murmur"), ("buckets", 3, 3, "locality")])
+def test_probe_edge_keys_match_jax(addressing, size, budget, hash_name):
+    """The table probe's plain version (the kernel's definition, on CPU
+    tensors: no launch) against JAX's on the cases the card tests hold the
+    kernel to: budgets 1, 4 and 6, one above the table size, tables of 1
+    and 2 slots, buckets of 2 and 3 slots, each hash kind; tables with
+    empty slots (0) probed by key 0, INT32_MIN, INT32_MAX and negatives."""
+    rng = np.random.default_rng(size + budget)
+    alphabet = np.concatenate([np.arange(-8, 9, dtype=np.int32),
+                               [INT32_MIN, MAXI32]]).astype(np.int32)
+    table_np = rng.choice(alphabet, size).astype(np.int32)
+    table_np[rng.random(size) < 0.3] = 0
+    s_np = rng.choice(alphabet, 999).astype(np.int32)
+    (table, jtable), (st, sj) = both(table_np), both(s_np)
+    hash_fn, jhash_fn = HASHES[hash_name]
+    launches = probe.LAUNCHES
+    if addressing == "open":
+        got = probe.probe_open_addressing(table, st, budget, hash_fn)
+        want = jprobe.probe_open_addressing(jtable, sj, budget, jhash_fn)
+    else:
+        got = probe.probe_buckets(table, st, budget, hash_fn)
+        want = jprobe.probe_buckets(jtable, sj, budget, jhash_fn)
+    assert probe.LAUNCHES == launches
+    assert got.dtype == torch.int64 and got.dim() == 0
+    assert int(got) == int(want) > 0
+
+
+def test_probe_takes_cpu_or_cuda_tensors():
+    """The table probe runs the plain version on CPU tensors, the kernel
+    on CUDA tensors, and raises on any other device: nothing falls back."""
+    table = torch.zeros(8, dtype=torch.int32, device="meta")
+    skeys = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        probe.probe_open_addressing(table, skeys, 4, hashing.identity_hash)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        probe.probe_buckets(table, skeys, 2, hashing.identity_hash)
+
+
+def test_kernel_hash_kinds():
+    """The identity and locality hashes are computed in the scatter-table
+    kernels (kinds 1 and 2); any other hash is handed over as int32."""
+    keys = torch.tensor([5, -7, 0, MAXI32], dtype=torch.int32)
+    assert hashing.kernel_hash(keys, hashing.identity_hash, 7) == (1, None)
+    assert hashing.kernel_hash(keys, hashing.locality_hash, 7) == (2, None)
+    kind, h = hashing.kernel_hash(keys, murmur_hash, 7)
+    assert kind == 0 and h.dtype == torch.int32 and h.is_contiguous()
+    assert torch.equal(h, murmur_hash(keys, 7))
 
 
 def test_spill_probe_counts_int32_max_exactly():
