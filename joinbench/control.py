@@ -4,9 +4,9 @@
 
 For each seed, one short window of the program (its worst gap of each
 number compared, the limit's lower reading) and one of the control: the
-plain reference computed with 32-bit accumulators, the nearest precision
-below the configuration's 64-bit sums, put in the program's place (the
-upper reading).  The control has to come out not correct.  Prints one JSON
+cell's entry's plain reference (its ``expected``) computed with 32-bit
+accumulators, the nearest precision below the configuration's 64-bit
+sums, put in the program's place (the upper reading).  The control has to come out not correct.  Prints one JSON
 line a run; needs the card, as ``run.py`` does.
 """
 
@@ -17,19 +17,11 @@ import time
 from pathlib import Path
 
 
-class _Line:
-    def __init__(self, fields):
-        self.fields = fields
-
-    def to_dict(self):
-        return dict(self.fields)
-
-
-def control_join(r, s, cfg):
-    """The reference in 32-bit accumulators, in the program's place."""
+def control_join(cell, inputs):
+    """The entry's reference in 32-bit accumulators, in the program's
+    place (``loop.run``'s ``join_fn``)."""
     import torch
-    from joinbench import reference
-    return _Line(reference.expected(r.keys, s.keys, accumulator=torch.int32))
+    return cell.reference.expected(inputs, accumulator=torch.int32)
 
 
 def main(argv=None) -> int:

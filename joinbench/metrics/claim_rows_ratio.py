@@ -15,4 +15,4 @@ def read(run):
               if j.line is not None and "claimRows" in j.line]
     if not counts:
         return None
-    return sum(counts) / len(counts) / run.cell.r_size
+    return sum(counts) / len(counts) / run.cell.settings["r_size"]

@@ -54,5 +54,5 @@ def share(run, name: str, need_bytes: int):
 
 
 def read(run):
-    cfg = run.cell.cfg
+    cfg = run.cell.settings["cfg"]
     return share(run, SPAN, build_bytes(cfg.r_size, cfg.scale_output))

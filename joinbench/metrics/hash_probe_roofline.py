@@ -19,4 +19,4 @@ def probe_bytes(s_size: int) -> int:
 
 def read(run):
     return cells.metric_module("hash_build_roofline").share(
-        run, SPAN, probe_bytes(run.cell.s_size))
+        run, SPAN, probe_bytes(run.cell.settings["s_size"]))

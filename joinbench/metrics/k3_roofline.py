@@ -27,6 +27,7 @@ def read(run):
                                      _keys_only)
     if not seconds:
         return None
-    cell = run.cell
-    need = 8 * keys_sorted(cell.r_size, cell.s_size, cell.s_gen.SORTED)
+    settings = run.cell.settings
+    need = 8 * keys_sorted(settings["r_size"], settings["s_size"],
+                           settings["s_gen"].SORTED)
     return 100.0 * need * len(run.traced) / peaks.HBM_BYTES_PER_S / seconds

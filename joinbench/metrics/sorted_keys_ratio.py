@@ -16,7 +16,7 @@ def read(run):
               if j.line is not None and "sortedKeys" in j.line]
     if not counts:
         return None
-    cell = run.cell
+    settings = run.cell.settings
     need = cells.metric_module("k3_roofline").keys_sorted(
-        cell.r_size, cell.s_size, cell.s_gen.SORTED)
+        settings["r_size"], settings["s_size"], settings["s_gen"].SORTED)
     return sum(counts) / len(counts) / need

@@ -8,7 +8,7 @@ import sys
 
 import torch
 
-from . import cells, loop, trace
+from . import cells, trace
 
 
 def metrics(run, entries) -> dict:
@@ -36,7 +36,7 @@ def power_limit() -> str:
 
 def correct(run) -> bool:
     return run.failed == 0 and all(run.check[k] <= lim
-                                   for k, lim in loop.LIMITS.items())
+                                   for k, lim in run.cell.limits.items())
 
 
 def result(run, traced: bool) -> dict:
@@ -60,7 +60,7 @@ def result(run, traced: bool) -> dict:
                      "join_s": sum(j.seconds for j in run.joins),
                      "generate_s": sum(j.generate_s for j in run.joins)}
     out["check"] = {k: {"value": run.check[k], "limit": lim}
-                    for k, lim in loop.LIMITS.items()}
+                    for k, lim in run.cell.limits.items()}
     return out
 
 

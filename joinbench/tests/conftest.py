@@ -13,15 +13,21 @@ if str(ROOT) not in sys.path:
 
 from joinbench import cells, loop  # noqa: E402
 
-# sizes a test run holds: |R| = 2^17 keeps the sum of R's keys above 2^31,
-# so 32-bit accumulators (the control) still wrap
-SMALL = {"adaptive_2e27": ["--rSize", str(1 << 17)],
-         "pro_2e24x2e28": ["-r", str(1 << 17), "-s", str(1 << 19)]}
 CELLS = [w["name"] for w in cells.benchmark()["workloads"]]
+# the cells whose configuration names no other entry than join_step
+JOIN_STEP_CELLS = [
+    w["name"] for w in cells.benchmark()["workloads"]
+    if cells.config_file(w["config"]).get("entry", cells.DEFAULT_ENTRY)
+    == "join_step"]
 
 
 def small_cell(name):
-    return cells.load(name, SMALL[name.split(".")[0]])
+    """The cell at its configuration file's ``small_argv``: sizes a test
+    run holds.  The three join_step deployments' |R| = 2^17 keeps the sum of
+    R's keys above 2^31, so 32-bit accumulators (the control) still wrap."""
+    config = next(w["config"] for w in cells.benchmark()["workloads"]
+                  if w["name"] == name)
+    return cells.load(name, cells.config_file(config)["small_argv"])
 
 
 def cpu_run(name, seed=2**31 + 7, seconds=0.05, traced=False, **kw):

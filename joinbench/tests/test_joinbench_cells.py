@@ -7,7 +7,7 @@ import pytest
 
 from joinbench import cells, gen
 
-from conftest import CELLS, ROOT
+from conftest import CELLS, JOIN_STEP_CELLS, ROOT
 
 BENCH = cells.benchmark()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -50,10 +50,19 @@ def test_configs():
         assert c["file"] == f"joinbench/configs/{c['name']}.json"
         assert c["file"] not in files
         files.add(c["file"])
+        assert len(c["reduced"]) <= 16
+        assert all(NAME.match(key) for key in c["reduced"])
         body = json.loads((ROOT / c["file"]).read_text())
-        assert body["reduced"] == c["reduced"] == []
+        assert body["reduced"] == c["reduced"]
         assert body["source"] == c["source"]
         assert body["assumed"]
+        assert isinstance(body["small_argv"], list)
+        assert all(isinstance(a, str) for a in body["small_argv"])
+        entry = body.get("entry", cells.DEFAULT_ENTRY)
+        assert NAME.match(entry)
+        for module in (entry, f"{entry}_reference"):
+            assert (ROOT / "joinbench" / "entries"
+                    / f"{module}.py").is_file()
 
 
 def test_workloads():
@@ -96,8 +105,7 @@ def test_metrics():
 @pytest.mark.parametrize("name", CELLS)
 def test_every_cell_loads_by_name_and_reports_enough(name):
     cell = cells.load(name)
-    assert (cell.r_size, cell.s_size) == (cell.config["r_size"],
-                                         cell.config["s_size"])
+    assert cell.limits == {f"{f}_gap": 0 for f in cell.reference.FIELDS}
     e2e = {m["name"] for m in cell.end_to_end}
     assert "setup_s" in e2e and len(e2e) >= 2 and cell.per_layer
     for m in cell.per_layer:
@@ -114,13 +122,24 @@ def test_every_metric_has_a_reader_that_agrees(entry):
         assert (mod.LAYER, mod.MOVES) == (entry["layer"], entry["moves"])
 
 
+def _entries_reading(traffic):
+    """The entries of the cells on ``traffic``; a mix no cell runs is kept
+    for ``join_step``."""
+    names = {cells.config_file(w["config"]).get("entry", cells.DEFAULT_ENTRY)
+             for w in BENCH["workloads"] if w["traffic"] == traffic}
+    return names or {cells.DEFAULT_ENTRY}
+
+
 def test_every_traffic_names_its_generators():
     for path in sorted((ROOT / "joinbench" / "traffic").glob("*.json")):
         t = json.loads(path.read_text())
-        assert set(t) == {"argv", "r", "s", "why"} and _line(t["why"])
-        for side in "rs":
-            g = gen.load(t[side])
-            assert isinstance(g.SORTED, bool) and callable(g.keys)
+        assert _line(t["why"])
+        for entry in _entries_reading(path.stem):
+            assert set(t) == cells.entry_module(entry).TRAFFIC_KEYS
+        if _entries_reading(path.stem) == {"join_step"}:
+            for side in "rs":
+                g = gen.load(t[side])
+                assert isinstance(g.SORTED, bool) and callable(g.keys)
 
 
 def test_a_missing_name_is_an_error():
@@ -128,6 +147,13 @@ def test_a_missing_name_is_an_error():
         cells.load("no_such.cell")
     with pytest.raises(FileNotFoundError):
         cells.metric_module("no_such_metric")
+
+
+@pytest.mark.parametrize("name", JOIN_STEP_CELLS)
+def test_a_join_step_cell_has_its_configuration_files_sizes(name):
+    cell = cells.load(name)
+    assert (cell.settings["r_size"], cell.settings["s_size"]) == (
+        cell.config["r_size"], cell.config["s_size"])
 
 
 def test_sizes_must_match_the_configuration_file(monkeypatch):
@@ -139,7 +165,7 @@ def test_sizes_must_match_the_configuration_file(monkeypatch):
         return body
     monkeypatch.setattr(cells, "config_file", wrong)
     with pytest.raises(ValueError):
-        cells.load(CELLS[0])
+        cells.load(JOIN_STEP_CELLS[0])
 
 
 def test_files_are_named_from_name_characters():

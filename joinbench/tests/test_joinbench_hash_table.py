@@ -11,12 +11,6 @@ import pytest
 from joinbench import cells, peaks, trace
 from joinbench.loop import Join
 
-import conftest
-
-# the small size of the configuration this file's cell brings, beside the
-# others' in conftest.SMALL, for the tests that run every cell
-conftest.SMALL.setdefault("hashjoin_2e27", ["--rSize", str(1 << 17)])
-
 US = 1e-6
 
 
@@ -47,9 +41,9 @@ def _events(port_spans=True, offset=0):
 
 
 def _run(events=None, lines=(), r_size=1000, s_size=500, scale_output=2):
-    cell = types.SimpleNamespace(
+    cell = types.SimpleNamespace(settings=dict(
         r_size=r_size, s_size=s_size,
-        cfg=types.SimpleNamespace(r_size=r_size, scale_output=scale_output))
+        cfg=types.SimpleNamespace(r_size=r_size, scale_output=scale_output)))
     joins = [Join(i, 1.0, 0.0, 0, r_size + s_size, line, None, ())
              for i, line in enumerate(lines)]
     return types.SimpleNamespace(
@@ -64,13 +58,14 @@ def _read(name, run):
 def test_the_bytes_of_the_cell_by_hand():
     build = cells.metric_module("hash_build_roofline")
     probe = cells.metric_module("hash_probe_roofline")
-    cell = cells.load("hashjoin_2e27.shuffle")
-    r, scale = cell.cfg.r_size, cell.cfg.scale_output
-    assert (r, cell.s_size, scale) == (1 << 27, 1 << 27, 2)
+    settings = cells.load("hashjoin_2e27.shuffle").settings
+    cfg, s_size = settings["cfg"], settings["s_size"]
+    r, scale = cfg.r_size, cfg.scale_output
+    assert (r, s_size, scale) == (1 << 27, 1 << 27, 2)
     assert build.table_slots(r, scale) == 1 << 28
     # 2^27 keys read and 2^28 slots written, 4 bytes each: 1.61 GB
     assert build.build_bytes(r, scale) == 1_610_612_736
-    assert probe.probe_bytes(cell.s_size) == 1_073_741_824
+    assert probe.probe_bytes(s_size) == 1_073_741_824
     assert build.build_bytes(r, scale) / peaks.HBM_BYTES_PER_S == \
         pytest.approx(0.4808e-3, rel=1e-3)
     # next_pow2 rounds up; a power of two stays

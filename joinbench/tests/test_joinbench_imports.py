@@ -32,8 +32,9 @@ def test_no_source_imports_jax_or_the_jax_package(path):
     assert not _top_level_imports(path) & FORBIDDEN
 
 
-@pytest.mark.parametrize("path", [ROOT / "joinbench" / "reference.py",
-                                  ROOT / "joinbench" / "peaks.py",
+@pytest.mark.parametrize("path", [ROOT / "joinbench" / "peaks.py",
+                                  *(p for p in SOURCES
+                                    if p.name.endswith("reference.py")),
                                   *sorted((ROOT / "joinbench" / "gen")
                                           .glob("*.py"))],
                          ids=lambda p: p.name)

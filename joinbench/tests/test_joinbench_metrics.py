@@ -15,8 +15,9 @@ def _join(i, seconds, tuples=10, peak=0, line=None):
 
 def _run(joins=(), traced=None, r_size=1 << 27, s_size=1 << 27,
          s_sorted=True, setup_s=1.0):
-    cell = types.SimpleNamespace(r_size=r_size, s_size=s_size,
-                                 s_gen=types.SimpleNamespace(SORTED=s_sorted))
+    cell = types.SimpleNamespace(settings=dict(
+        r_size=r_size, s_size=s_size,
+        s_gen=types.SimpleNamespace(SORTED=s_sorted)))
     return types.SimpleNamespace(cell=cell, joins=list(joins), traced=traced,
                                  setup_s=setup_s)
 

@@ -13,7 +13,7 @@ import torch
 
 from joinbench import cells, control, loop, report
 
-from conftest import CELLS, ROOT, cpu_run, small_cell
+from conftest import CELLS, JOIN_STEP_CELLS, ROOT, cpu_run, small_cell
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -34,7 +34,9 @@ def test_a_small_run_is_correct_and_reports_every_metric(name):
 
 @pytest.mark.parametrize("name", CELLS)
 def test_a_traced_run_reports_the_lines_counter(name):
-    run = cpu_run(name, traced=True, seconds=0.2)
+    # long enough for a second join on a loaded CPU: the first carries the
+    # profiler's start-up and is not read
+    run = cpu_run(name, traced=True, seconds=1.0)
     out = report.result(run, True)
     assert out["correct"]
     assert len(run.traced) == min(loop.TRACED, len(run.joins) - 1)
@@ -63,10 +65,13 @@ def test_each_join_gets_fresh_inputs():
 
 
 def _faulty(change):
-    """The port's join step with ``change`` applied where it is produced."""
-    def join(r, s, cfg):
+    """The port's join step with ``change`` applied where it is produced,
+    in the place of the entry's (``join_step``'s) call."""
+    def join(cell, inputs):
         from htm_hashjoin_tpu_torch.joins import DISPATCH
-        return change(DISPATCH[cfg.algo.value], r, s, cfg)
+        cfg = cell.settings["cfg"]
+        return change(DISPATCH[cfg.algo.value], inputs.r, inputs.s,
+                      cfg).to_dict()
     return join
 
 
@@ -130,16 +135,24 @@ def test_inputs_not_made_again_alike_fail_the_check(monkeypatch):
 def test_the_control_is_not_correct(name):
     run = cpu_run(name, join_fn=control.control_join)
     assert not report.correct(run)
+    assert any(run.check[k] > lim for k, lim in run.cell.limits.items())
+
+
+@pytest.mark.parametrize("name", JOIN_STEP_CELLS)
+def test_the_join_step_control_wraps_both_sums(name):
+    run = cpu_run(name, join_fn=control.control_join)
+    assert not report.correct(run)
     assert run.check["inputSum_gap"] > 0 and run.check["outputSum_gap"] > 0
 
 
 def test_the_generators_tables_are_left_out_of_the_peak():
     zipf = small_cell("pro_2e24x2e28.fk_zipf1")
-    assert loop.Inputs(zipf, 9, "cpu").table_bytes == zipf.r_size * 8
+    r_size = zipf.settings["r_size"]
+    assert loop.Inputs(zipf, 9, "cpu").table_bytes == r_size * 8
     plain = small_cell("adaptive_2e27.shuffle")
     assert loop.Inputs(plain, 9, "cpu").table_bytes == 0
     run = cpu_run("pro_2e24x2e28.fk_zipf1")
-    assert run.table_bytes == zipf.r_size * 8
+    assert run.table_bytes == r_size * 8
     out = report.result(run, False)
     assert out["device"]["memory_peak_bytes"] == (
         max(j.peak_bytes for j in run.joins) + run.table_bytes)

@@ -38,8 +38,9 @@ def _events(port_spans=True):
 
 
 def _run(events=None, lines=(), r_size=100, s_size=50, s_sorted=True):
-    cell = types.SimpleNamespace(r_size=r_size, s_size=s_size,
-                                 s_gen=types.SimpleNamespace(SORTED=s_sorted))
+    cell = types.SimpleNamespace(settings=dict(
+        r_size=r_size, s_size=s_size,
+        s_gen=types.SimpleNamespace(SORTED=s_sorted)))
     joins = [Join(i, 1.0, 0.0, 0, 10, line, None, ())
              for i, line in enumerate(lines)]
     return types.SimpleNamespace(
