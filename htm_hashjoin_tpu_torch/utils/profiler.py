@@ -215,7 +215,8 @@ def shard_work_from_histogram(hist: np.ndarray, n_shards: int) -> np.ndarray:
 #: a stretch belongs to the innermost span that covers it.
 SPANS = {
     "hj.join": "a join step, its line included (the outermost call of a "
-               "joins.DISPATCH entry)",
+               "joins.DISPATCH entry; the multijoin's "
+               "wisconsin.driver.join_tables)",
     "hj.sniff": "issuing a sniff's device chain",
     "hj.plan": "the planner's host work: route, guess, dial, what to do "
                "after a readback; around an engine call "
@@ -229,14 +230,21 @@ SPANS = {
     "hj.recount": "the mass path's recount of a sorted plan's flagged "
                   "tiles in place (a one-key tile from its band's ends, "
                   "K4 over the others' whole bands)",
+    "hj.split": "a multijoin partition split of one side and its fence "
+                "(wisconsin.driver.join_tables: the partitioner's split, "
+                "K7 on the card at reference scale)",
     "hj.build": "a scatter build (joins.common.scatter_join, "
                 "ops/insert.py): its device chain and fence, then the "
                 "spill's readback and any compaction and sort "
-                "(joins.common.SpillState)",
+                "(joins.common.SpillState); a multijoin's build "
+                "(the joiner's build and its fence)",
     "hj.probe": "a scatter build's probe: the table probe and its fence, "
-                "the spill's probe, and their readbacks",
+                "the spill's probe, and their readbacks; a multijoin's "
+                "probe (the joiner's probe, the output's materialisation "
+                "and its fence)",
     "hj.line": "building the join's line, and its dict in the reference "
-               "schema (JoinMetrics.to_dict, which its caller calls)",
+               "schema (JoinMetrics.to_dict, which its caller calls); a "
+               "multijoin's line, the output's sums and their readback",
 }
 
 _NO_SPAN = contextlib.nullcontext()

@@ -10,10 +10,11 @@ synchronize does, so it is not carried over.  With a counter session on
 (``profiler.enable_counters``, the ``--counters`` flag), each timed phase
 also records its PCM-analog counters, after its clock stops.
 
-Every host wait on the device in the joins goes through ``readback`` (a
-copy to the host) or ``fence_outputs`` (a synchronize): each wait is an
-``hj.readback`` span and counts one in ``READBACKS``, which the join's
-line reports per join as ``readbacks`` (``joins.common.join_scope``).
+Every host wait on the device in the joins and in the multijoin goes
+through ``readback`` or ``readback_array`` (a copy to the host) or
+``fence_outputs`` (a synchronize): each wait is an ``hj.readback`` span
+and counts one in ``READBACKS``, which a join's line reports per join as
+``readbacks`` (``joins.common.join_scope``, ``wisconsin.driver.join_tables``).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import time
 from contextlib import contextmanager
 from typing import Dict
 
+import numpy as np
 import torch
 
 from .profiler import active_counters, phase_counters_from_fn, span
@@ -64,6 +66,15 @@ def readback(x: torch.Tensor):
     READBACKS += 1
     with span("hj.readback"):
         return x.tolist()
+
+
+def readback_array(x: torch.Tensor) -> np.ndarray:
+    """``readback`` as a numpy array of ``x``'s dtype (``x.cpu().numpy()``),
+    for vectors too long for a list: one copy, one count."""
+    global READBACKS
+    READBACKS += 1
+    with span("hj.readback"):
+        return x.cpu().numpy()
 
 
 class PhaseTimer:

@@ -46,6 +46,7 @@ import torch
 
 from ..relation import next_pow2
 from ..utils.profiler import sync_stats
+from ..utils.timing import readback, readback_array
 from .hashfn import HashFunction
 from .partitioner import PartitionedTable, RadixPartitioner
 from .schema import Schema
@@ -74,6 +75,16 @@ def _pad_to(x: torch.Tensor, cap: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros((cap - x.shape[0],))])
 
 
+def _upload(array, dev: torch.device) -> torch.Tensor:
+    """A host array on ``dev``.  On the card the copy leaves from pinned
+    memory and the host does not wait: a copy from pageable memory would
+    synchronize the stream, a wait on the device's queued work."""
+    t = torch.as_tensor(array)
+    if dev.type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
 # ---------------------------------------------------------------------------
 # Join-index kernels
 # ---------------------------------------------------------------------------
@@ -92,7 +103,7 @@ def _expand_matches(lo: torch.Tensor, hi: torch.Tensor, cap: int):
     counts = (hi - lo).to(idt)
     offsets = torch.cat([counts.new_zeros((1,)),
                          torch.cumsum(counts, 0, dtype=idt)])
-    total = int(offsets[-1])
+    total = readback(offsets[-1])
     k = _arange(cap, lo, idt)
     if lo.shape[0] == 0:
         none = torch.full((cap,), -1, dtype=idt, device=lo.device)
@@ -134,7 +145,7 @@ def _keys_absmax(a: torch.Tensor, b: torch.Tensor) -> int:
     certificate."""
     m = torch.stack([torch.maximum(a.max(), b.max()).long(),
                      -torch.minimum(a.min(), b.min()).long()])
-    return int(m.max())
+    return readback(m.max())
 
 
 _I32_COMP_LIMIT = (1 << 30) - 1  # |key|*2+1 must stay in int32, with one
@@ -306,8 +317,8 @@ def _match_bounds(sorted_keys: torch.Tensor, probe_keys: torch.Tensor,
 # units; units are grouped into <= nthreads CONTIGUOUS row-balanced blocks,
 # one per worker, and each worker's whole block is enqueued as one chain of
 # device work.  Per-unit totals come from a boundary cumsum inside the
-# block, so the measured per-unit schedule survives with one readback per
-# worker.
+# block, so the measured per-unit schedule survives with one readback for
+# all the workers.
 # ---------------------------------------------------------------------------
 
 def _unit_totals(lo, hi, ubounds):
@@ -449,10 +460,6 @@ class _Mark:
         else:
             self.t = time.perf_counter()
 
-    def wait(self) -> None:
-        if self.event is not None:
-            self.event.synchronize()
-
     def micros_since(self, other: "_Mark") -> float:
         if self.event is not None:
             return other.event.elapsed_time(self.event) * 1e3
@@ -510,7 +517,7 @@ class BaseJoiner:
     # -- shared emit ---------------------------------------------------------
 
     def _emit(self, probe_table: Table, lo, hi, total: int,
-              build_payload_cols: List, probe_row_of=None,
+              build_payload_cols: List,
               unit_counts: bool = False) -> Table:
         """Materialize output rows: sel1 payload gathered from the build
         structure, sel2 columns gathered from the probe side.
@@ -533,16 +540,13 @@ class BaseJoiner:
             probe_idx, build_rank, _ = _expand_matches(lo, hi, cap)
             b_rank = torch.clamp(build_rank, min=0)
             p_idx = torch.clamp(probe_idx, min=0)
-        if probe_row_of is not None:
-            p_idx = _take(torch.as_tensor(probe_row_of, device=p_idx.device),
-                          p_idx)
         out_cols: List = []
         for col in build_payload_cols:
             if is_strings(col):
                 out_cols.append(col[host(b_rank[:total_i])])
             else:
                 out_cols.append(_take(col, b_rank))
-        identity_probe = unit_counts and total_i and probe_row_of is None
+        identity_probe = unit_counts and total_i
         for c in self.sel2:
             col = probe_table.column(c)
             if is_strings(col):
@@ -605,7 +609,7 @@ class HashJoiner(BaseJoiner):
         self._perm_build = False
         self._key_bound = _I32_COMP_LIMIT
         if table.num_rows:
-            max_occ, kmin, kmax = _build_key_stats(keys, occ).tolist()
+            max_occ, kmin, kmax = readback(_build_key_stats(keys, occ))
             self.stats.max_bucket_occupancy = max_occ
             self._key_bound = max(abs(kmin), abs(kmax))
             if keys.element_size() > 4 and self._key_bound < (1 << 31):
@@ -618,7 +622,7 @@ class HashJoiner(BaseJoiner):
                 # permutation certificate: every key in [kmin, kmax]
                 # appears exactly once -> probe bounds are arithmetic
                 self._kmin, self._kmax = kmin, kmax
-                self._perm_build = (int(mx_cnt) == 1
+                self._perm_build = (readback(mx_cnt) == 1
                                     and kmax - kmin + 1 == table.num_rows)
         else:
             self.stats.max_bucket_occupancy = 0
@@ -655,14 +659,14 @@ class HashJoiner(BaseJoiner):
             if self._perm_build:
                 lo, hi, head = _dense_bounds_perm(probe_keys, self._kmin,
                                                   self._kmax)
-                tot, unit = head.tolist()
+                tot, unit = readback(head)
                 if unit:          # every probe key in range
                     return lo, hi, tot, True
             lo, hi, head = _dense_bounds(*self._dense_tbl, probe_keys)
-            tot, unit = head.tolist()
+            tot, unit = readback(head)
             return lo, hi, tot, bool(unit)
         lo, hi, t = _match_bounds(self._build_keys_sorted, probe_keys)
-        return lo, hi, int(t), False
+        return lo, hi, readback(t), False
 
     def _schedule_bounds(self, parts: PartitionedTable, probe_keys,
                          n: int) -> "tuple[np.ndarray, str]":
@@ -723,7 +727,7 @@ class HashJoiner(BaseJoiner):
             keys_po = self._build_table.key_column(self.ja1).to(
                 self._build_keys_sorted.dtype)
             self._plocal = _part_sorted_build(
-                keys_po, torch.as_tensor(offs, device=keys_po.device))
+                keys_po, _upload(offs, keys_po.device))
         return self._plocal
 
     def _scheduled_probe(self, parts: PartitionedTable, probe_keys,
@@ -731,10 +735,10 @@ class HashJoiner(BaseJoiner):
         """Scheduled probe execution: the units are grouped into <= nthreads
         contiguous row-balanced blocks, each worker's block is enqueued as
         one chain of device work (per-unit totals fall out of a boundary
-        cumsum inside it) with its small head copied back behind it, and
-        the heads are read in worker order, each as soon as its block is
-        done while later blocks still run.  Worker spans are the measured
-        completion deltas of the device-serialized blocks — the per-thread
+        cumsum inside it) and followed by a mark of its completion (a CUDA
+        event on the card), and the blocks' small heads are read back
+        together, one wait.  Worker spans are the measured completion
+        deltas of the device-serialized blocks — the per-thread
         rdtsc span analog (main.cpp:75-94); per-unit micros apportion each
         worker's span by unit rows.  ProbeIsPart and ProbeSteal produce
         different decompositions (different measured schedules), identical
@@ -776,7 +780,7 @@ class HashJoiner(BaseJoiner):
             ub[:uhi - ulo + 1] = [units[i][0] - a0
                                   for i in range(ulo, uhi)] + \
                                  [units[uhi - 1][1] - a0]
-            return a0, torch.as_tensor(ub, device=dev)
+            return a0, _upload(ub, dev)
 
         if route == "perm":
             def run(start, ub, ulo, uhi):
@@ -803,40 +807,30 @@ class HashJoiner(BaseJoiner):
                 bl[:uhi - ulo] = szs[pids[ulo:uhi]]
                 return _block_bounds_local(
                     W, U, BP, PP, use_i32, pk_pad, start, ub, bkeys_ps,
-                    torch.as_tensor(b0, device=dev),
-                    torch.as_tensor(bl, device=dev), g_of_l)
+                    _upload(b0, dev), _upload(bl, dev), g_of_l)
         else:
             def run(start, ub, ulo, uhi):
                 return _block_bounds_sorted(W, use_i32, pk_pad, start, ub,
                                             self._build_keys_sorted)
 
-        # enqueue every worker's block, each followed by an asynchronous
-        # copy of its small head and a mark of its completion
+        # enqueue every worker's block, each followed by a mark of its
+        # completion; then every block's small head in one readback
         origin = _Mark(dev)
-        outs, heads, marks = [], [], []
+        outs, marks = [], []
         for (ulo, uhi) in blocks:
             start, ub = block_args(ulo, uhi)
-            o = run(start, ub, ulo, uhi)
-            head = o[2]
-            if head.is_cuda:
-                head = torch.empty(head.shape, dtype=head.dtype,
-                                   pin_memory=True).copy_(head,
-                                                          non_blocking=True)
-            outs.append(o)
-            heads.append(head)
+            outs.append(run(start, ub, ulo, uhi))
             marks.append(_Mark(dev))
+        heads = readback_array(torch.stack([o[2] for o in outs]))
 
-        # the heads, read in worker order as each block completes
         times = [0.0] * len(units)
         worker_us = [0.0] * k
         unit_totals = np.zeros((len(units),), np.int64)
         total = 0
         all_unit = True
         prev = origin
-        for w, ((ulo, uhi), head, mark) in enumerate(zip(blocks, heads,
-                                                         marks)):
-            mark.wait()
-            hd = head.numpy()
+        for w, ((ulo, uhi), hd, mark) in enumerate(zip(blocks, heads,
+                                                       marks)):
             worker_us[w] = mark.micros_since(prev)
             prev = mark
             unit_totals[ulo:uhi] = hd[:uhi - ulo]
@@ -889,10 +883,10 @@ class HashJoiner(BaseJoiner):
                 self.stats.partition_probe_costs = costs
             else:
                 # steal chunks cross partition bounds
-                starts = torch.as_tensor(np.asarray(parts.offsets, np.int64),
-                                         device=lo.device)
-                ends = starts + torch.as_tensor(
-                    np.asarray(parts.sizes, np.int64), device=lo.device)
+                starts = _upload(np.asarray(parts.offsets, np.int64),
+                                 lo.device)
+                ends = starts + _upload(np.asarray(parts.sizes, np.int64),
+                                        lo.device)
                 self.stats.partition_probe_costs = host(
                     _partition_costs(lo, hi, starts, ends))
         else:
@@ -937,7 +931,7 @@ class NestedLoops(BaseJoiner):
         lo, hi, total = _match_bounds(skeys, pkeys)
         payload_cols = [_gather(self._build_table.column(c), order)
                         for c in self.sel1]
-        return self._emit(table, lo, hi, int(total), payload_cols)
+        return self._emit(table, lo, hi, readback(total), payload_cols)
 
     def brute_count(self) -> int:
         """Tiled all-pairs count — the literal nl.cpp loop, for validation."""
@@ -999,14 +993,14 @@ class FlatMemoryJoiner(BaseJoiner):
         self._flat_dir = None
         self._flat_perm = None
         if table.num_rows:
-            kmin, kmax = torch.stack([keys.min(), keys.max()]).tolist()
+            kmin, kmax = readback(torch.stack([keys.min(), keys.max()]))
             if 0 <= kmin and kmax < _DENSE_LIMIT \
                     and kmax < max(16 * table.num_rows, 1 << 20):
                 kf = keys32.to(torch.int32)[order]
                 start_tbl, cnt_tbl = _flat_directory(kf, next_pow2(kmax + 2))
                 self._flat_dir = (start_tbl, cnt_tbl)
                 if (kmax - kmin + 1 == table.num_rows
-                        and int(cnt_tbl.max()) == 1):
+                        and readback(cnt_tbl.max()) == 1):
                     # permutation certificate (the canonical 16M PK build,
                     # wisconsin-src/datagen/genbuild.py): probe ranks are
                     # ARITHMETIC in key order, so the per-probe directory
@@ -1025,7 +1019,7 @@ class FlatMemoryJoiner(BaseJoiner):
             kmin, kmax, order_key = self._flat_perm
             lo, hi, head = _dense_bounds_perm(table.key_column(self.ja2),
                                               kmin, kmax)
-            tot, unit = head.tolist()
+            tot, unit = readback(head)
             payload_cols = [_gather(self._build_table.column(c), order_key)
                             for c in self.sel1]
             return self._emit(table, lo, hi, tot, payload_cols,
@@ -1035,7 +1029,7 @@ class FlatMemoryJoiner(BaseJoiner):
         if self._flat_dir is not None:
             lo, hi, head = _flat_dense_bounds(*self._flat_dir,
                                               table.key_column(self.ja2))
-            tot, unit = head.tolist()
+            tot, unit = readback(head)
             return self._emit(table, lo, hi, tot, payload_cols,
                               unit_counts=bool(unit))
         pkeys = table.key_column(self.ja2).long()
@@ -1043,7 +1037,7 @@ class FlatMemoryJoiner(BaseJoiner):
             table.key_column(self.ja2)).long()
         pcomp = (pbuckets << 32) | (pkeys & 0xFFFFFFFF)
         lo, hi, total = _match_bounds(self._flat_comp, pcomp)
-        return self._emit(table, lo, hi, int(total), payload_cols)
+        return self._emit(table, lo, hi, readback(total), payload_cols)
 
 
 # ---------------------------------------------------------------------------

@@ -42,6 +42,7 @@ import torch
 
 from ..constants import MAXI32
 from ..ops.global_sort_kv import global_sort_kv_tiles
+from ..utils.timing import readback
 from .hashfn import HashFunction, ModuloHash, hash_factory
 from .table import Table, host, is_strings
 
@@ -235,7 +236,7 @@ def _reorder(table: Table, jattr: int, buckets, nparts: int,
         # stable path below).
         payload_idx = 1 if jattr == 1 else 0   # the non-key column (0-based)
         payload = table.columns[payload_idx]
-        kmin, kmax = torch.stack([keys.min(), keys.max()]).tolist()
+        kmin, kmax = readback(torch.stack([keys.min(), keys.max()]))
         vmin = part_hash._min
         if kmin >= vmin:
             B = max(1, (kmax - vmin + 1).bit_length())

@@ -26,6 +26,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils.timing import readback_array
 from .schema import ColumnType, Schema
 
 _TORCH_DTYPES = {np.dtype(np.int32): torch.int32,
@@ -39,9 +40,10 @@ def is_strings(col) -> bool:
 
 
 def host(col) -> np.ndarray:
-    """A column as a host numpy array."""
+    """A column as a host numpy array; a tensor's copy is a counted wait on
+    the device (``utils.timing.readback_array``)."""
     if isinstance(col, torch.Tensor):
-        return col.cpu().numpy()
+        return readback_array(col)
     return np.asarray(col)
 
 
