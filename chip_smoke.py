@@ -222,6 +222,8 @@ from htm_hashjoin_tpu_torch.ops import global_sort as gs
 from htm_hashjoin_tpu_torch.ops import global_sort_kv as gkv
 from htm_hashjoin_tpu_torch.ops import insert, probe
 from htm_hashjoin_tpu_torch.ops import radix_kernels as rk
+from htm_hashjoin_tpu_torch.ops import rot_pack as rp
+from htm_hashjoin_tpu_torch.ops import rot_unpack as ru
 from htm_hashjoin_tpu_torch.ops import scatter_tiles as sct
 from htm_hashjoin_tpu_torch.ops import sort_kv_tiles as skv
 from htm_hashjoin_tpu_torch.ops import sort_tiles as st
@@ -258,6 +260,10 @@ KERNELS = {
     "global_sort_kv_tiles": (gkv, "radix_sort.cu", f"{JOIN_KERNELS}:701"),
     "claim_insert": (insert, "claim_insert.cu", "none: XLA scatter"),
     "hash_probe": (probe, "hash_probe.cu", "none: XLA gathers"),
+    "rot_pack": (rp, "split_pack.cu",
+                 "none: XLA fuses the packing on the TPU"),
+    "rot_unpack": (ru, "split_pack.cu",
+                   "none: XLA fuses the unpacking on the TPU"),
 }
 # kernels on no path, each with the reason: held to their plain versions
 # and timed, but exempt from the check that a path launched them
@@ -1572,23 +1578,52 @@ def _expected_pairs(conf, dev, cache) -> torch.Tensor:
     return cache[key]
 
 
+# the independent conf's probe split: vmin, skip, b, restbits, bias_bits
+# of its rotation packing (keys 1..2^24: 25 bits, 64 buckets, 8 shards)
+KV_LAYOUT = (1, 17, 6, 19, 3)
+
+
 def _kv_split_shape(dev):
-    """The independent conf's probe split at full scale, as K7 receives it:
-    2^28 rotation-packed keys with 3 shard bits (64 buckets, skip 17) and
-    the rid payload."""
+    """The independent conf's probe split at full scale: its 2^28 keys,
+    their shards, and K7's input, the rotation-packed keys with 3 shard bits
+    (64 buckets, skip 17) and the rid payload."""
     conf = parse_conf(WISCONSIN_CONFS + "independent.conf")
     side = conf["probe"]
     page = conf["partitioner"]["probe"]["pagesize"]
     tp = load_side(side, ".", page, dev)
     n = tp.num_rows
-    shard = (torch.arange(n, dtype=torch.int32, device=dev) // page) % 8
-    t = wpart._rot_pack(tp.column(1), shard, 1, 17, 6, 19, 3, n)
-    return t, tp.column(2)
+    shards = rp.Shards(page, conf["threads"])
+    t = rp.rot_pack_ref(tp.column(1), shards.ids(n, dev), *KV_LAYOUT, n)
+    return tp.column(1), shards, t, tp.column(2)
+
+
+def _time_packing(keys, shards, t, pay, errs, times, card) -> None:
+    """The split's pack and unpack kernels at the probe split's shape,
+    exactly as their plain versions, then timed: the pack of the keys
+    (n = n_pad: the payload goes to K7 as it is) and the unpack of K7's
+    sorted packed keys with the 64 partitions' bounds."""
+    n = keys.numel()
+    what = f"2^{n.bit_length() - 1} independent probe split"
+    before = (rp.LAUNCHES, ru.LAUNCHES)
+    _time_pair("rot_pack", what,
+               lambda: rp.rot_pack(keys, None, shards, *KV_LAYOUT, n)[0],
+               lambda: rp.rot_pack_ref(keys, shards.ids(n, keys.device),
+                                       *KV_LAYOUT, n),
+               errs, times, card, (keys,))
+    ks, vs = gkv.global_sort_kv_tiles(t, pay, tile=wpart.KV_TILE)
+    nparts = 1 << KV_LAYOUT[2]
+    _time_pair("rot_unpack", what,
+               lambda: ru.rot_unpack(ks, vs, *KV_LAYOUT, nparts)[::2],
+               lambda: ru.rot_unpack_ref(ks, vs, *KV_LAYOUT, nparts)[::2],
+               errs, times, card, (ks,))
+    times["rot_pack"]["kernel_phase_launches"] = rp.LAUNCHES - before[0]
+    times["rot_unpack"]["kernel_phase_launches"] = ru.LAUNCHES - before[1]
 
 
 def _wisconsin(dev, card, errs, times) -> dict:
     """K7 on few tiles, the six shipped confs at the reference scale
-    through run_multijoin, then K7a and K7 at the probe split's shape."""
+    through run_multijoin, then the split's pack and unpack kernels, K7 and
+    K7a at the probe split's shape."""
     _check_kv(dev, errs)
     total = dict.fromkeys(KERNELS, 0)
     cache = {}
@@ -1601,7 +1636,8 @@ def _wisconsin(dev, card, errs, times) -> dict:
             f"wisconsin {name}",
             lambda: res.setdefault("r", run_multijoin(conf, device=dev)
                                    ).to_json_line(),
-            {"global_sort_kv_tiles": int(kv)}, card)
+            {k: int(kv) for k in ("rot_pack", "global_sort_kv_tiles",
+                                  "rot_unpack")}, card)
         peak = torch.cuda.max_memory_allocated()
         r = res.pop("r")
         k7 = counts["global_sort_kv_tiles"]
@@ -1614,8 +1650,9 @@ def _wisconsin(dev, card, errs, times) -> dict:
               f"memory {peak} bytes ({peak / 2**30:.3f} GiB); output equal "
               f"to the plain join as a multiset: {match} [{card}]")
         _require(rows_ok and match and counts["sort_kv_tiles"] == 0
-                 and (k7 > 0 if kv else k7 == 0),
-                 f"wisconsin {name}: output or K7 launches wrong")
+                 and (k7 > 0 if kv else k7 == 0)
+                 and counts["rot_pack"] == counts["rot_unpack"] == k7,
+                 f"wisconsin {name}: output, K7 or packing launches wrong")
         for k, v in counts.items():
             total[k] += v
         if kv:
@@ -1627,7 +1664,9 @@ def _wisconsin(dev, card, errs, times) -> dict:
 
     # K7 at the probe split's shape, exactly; then K7a, the TPU's phase A,
     # which no path runs any more: its launches here are reported apart
-    t, pay = _kv_split_shape(dev)
+    keys, shards, t, pay = _kv_split_shape(dev)
+    _time_packing(keys, shards, t, pay, errs, times, card)
+    del keys
     what = f"2^{t.numel().bit_length() - 1} independent probe split"
     _time_pair("global_sort_kv_tiles", what,
                lambda: gkv.global_sort_kv_tiles(t, pay, tile=wpart.KV_TILE),

@@ -7,5 +7,6 @@ launch the radix sort of ``radix_sort``), the tile sorters' plain forms
 (``radix_kernels``), K1's band prepass (``tile_minmax``), the sort route's
 MSB partition and tagged probe (``partition``, ``probe``), the hash
 functions, scatter builds and table probes of the hash joins
-(``hashing``, ``insert``, ``probe``) and sortmerge's count (``sortops``),
+(``hashing``, ``insert``, ``probe``), the Wisconsin split's packing
+around K7 (``rot_pack``, ``rot_unpack``) and sortmerge's count (``sortops``),
 the wrappers' shared checks (``_args``) and the nvcc build (``_build``)."""

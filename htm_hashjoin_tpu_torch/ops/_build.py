@@ -119,6 +119,8 @@ def load_library() -> ctypes.CDLL:
         "htm_claim_insert": [p, p, i, i64, i64, i, i, p, p, i64, p, i64, p,
                              p, p],
         "htm_hash_probe": [p, p, i, i64, i64, i, i, p, p, p],
+        "htm_rot_pack": [p, p, i64, i64, i, i, i, i, i, i64, i64, p, p, p],
+        "htm_rot_unpack": [p, i64, i, i, i, i, i, p, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

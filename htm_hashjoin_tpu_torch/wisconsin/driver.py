@@ -33,6 +33,7 @@ from ..utils.profiler import span
 from ..utils.timing import fence_outputs, readback
 from .conf import parse_conf
 from .hashfn import hash_factory
+from . import partitioner
 from .joiners import BaseJoiner, joiner_factory
 from .partitioner import partitioner_factory
 from .schema import Schema
@@ -41,10 +42,11 @@ from .table import Table, WriteTable, is_strings
 
 #: the port's fields of the multijoin's line beside the JAX package's keys:
 #: three sums over the output's valid rows, in 64 bits, which depend on
-#: which rows were paired (``output_sums``), and the host's waits on the
-#: device over the join (``utils.timing.READBACKS``)
+#: which rows were paired (``output_sums``), the host's waits on the
+#: device over the join (``utils.timing.READBACKS``) and the splits that
+#: ran the pack kernel, K7 and the unpack kernel (``partitioner.KV_SPLITS``)
 PORT_ONLY_FIELDS = frozenset({"outputBuildSum", "outputProbeSum",
-                              "outputPairSum", "readbacks"})
+                              "outputPairSum", "readbacks", "kvSplits"})
 _SUM_FIELDS = ("outputBuildSum", "outputProbeSum", "outputPairSum")
 
 #: rows of the output a block of the line's sums takes: its int64 copies
@@ -173,14 +175,15 @@ def join_tables(conf: Dict[str, Any], tbuild: Table,
     compute() phases (:112-145), split build side, split probe side, build,
     probe, each ending in a fence of the device work behind its outputs
     and timed in ``timings_ns``; then the line's own numbers (``fields``):
-    the output's sums (``output_sums``) and the waits over the call.
+    the output's sums (``output_sums``), the waits over the call and its
+    splits through the packing kernels and K7.
 
     Spans: ``hj.join`` around the call, ``hj.split`` around each split,
     ``hj.build`` and ``hj.probe`` around the joiner's two phases,
     ``hj.line`` around the sums.  A split that copies its input frees the
     input's columns (``tbuild.columns`` and ``tprobe.columns`` become
     empty): at the 256M-row reference scale the copy costs 2 GB."""
-    reads = timing.READBACKS
+    reads, kv_splits = timing.READBACKS, partitioner.KV_SPLITS
     timings: Dict[str, int] = {}
     with span("hj.join"):
         # factories (main.cpp:250-255)
@@ -219,6 +222,7 @@ def join_tables(conf: Dict[str, Any], tbuild: Table,
             fields = dict(zip(_SUM_FIELDS,
                               readback(output_sums(output, len(sel1)))))
             fields["readbacks"] = timing.READBACKS - reads
+            fields["kvSplits"] = partitioner.KV_SPLITS - kv_splits
     return MultijoinResult(output, timings, joiner.stats, conf, fields)
 
 

@@ -4,10 +4,11 @@
 device operation is placed by the runtime call that issued it (tied by
 its correlation id, on the host's clock), not by its own timestamp:
 every device operation of the join lies inside ``hj.split``, ``hj.build``,
-``hj.probe`` or ``hj.line``; K7 (``radix_scatter<true>``) runs inside
-``hj.split``; every device-to-host copy and every synchronize lies inside
-an ``hj.readback`` span; and the line's ``readbacks`` is the count of
-those waits.
+``hj.probe`` or ``hj.line``; K7 (``radix_scatter<true>``) and the pack and
+unpack kernels around it run inside ``hj.split``, and the line's
+``kvSplits`` counts both splits; every device-to-host copy and every
+synchronize lies inside an ``hj.readback`` span; and the line's
+``readbacks`` is the count of those waits.
 
 Needs a CUDA device and nvcc; elsewhere every test skips.  The file
 imports no jax:
@@ -92,8 +93,12 @@ def test_the_multijoin_waits_and_device_work_lie_in_their_spans(dev,
         return [n for n in PHASES if any(covers(s, call) for s in spans[n])]
     assert all(len(phase(op)) == 1 for op in ops), [
         (op["name"], phase(op)) for op in ops if len(phase(op)) != 1]
-    k7 = [op for op in ops if "radix_scatter<true>" in op["name"]]
-    assert k7 and all(phase(op) == ["hj.split"] for op in k7)
+    for name in ("radix_scatter<true>", "rot_pack_kernel",
+                 "rot_unpack_kernel"):
+        launched = [op for op in ops if name in op["name"]]
+        assert len(launched) >= 2, name
+        assert all(phase(op) == ["hj.split"] for op in launched), name
+    assert line["kvSplits"] == 2
 
     copies = [op for op in ops if op["name"].startswith("Memcpy DtoH")]
     for op in copies:

@@ -235,7 +235,8 @@ def test_launch_counts_since():
                            "global_sort_tiles", "banded_count",
                            "banded_count_narrow", "scatter_tiles",
                            "sort_kv_tiles", "global_sort_kv_tiles",
-                           "claim_insert", "hash_probe"}
+                           "claim_insert", "hash_probe", "rot_pack",
+                           "rot_unpack"}
     assert launches_since(before) == {}
     before["sort_tiles"] -= 2
     assert launches_since(before) == {"sort_tiles": 2}

@@ -376,6 +376,46 @@ def test_kv_gate_falls_back_past_its_certificate(monkeypatch):
     assert calls == []
 
 
+@pytest.mark.parametrize("algo", ["parallel", "independent", "radix"])
+def test_kv_route_makes_no_bucket_shard_or_rank_column(monkeypatch, algo):
+    """The kv gate is decided before the stable path's columns: with the
+    kv route open, the bucket hash and the rank sort never run (both raise
+    here), and the split still equals JAX's stable split in sizes and
+    offsets."""
+    calls = open_kv_gate(monkeypatch)
+
+    def never(*args, **kw):
+        raise AssertionError("the kv route made a stable-path column")
+    monkeypatch.setattr(P.ModuloHash, "hash", never)
+    monkeypatch.setattr(PP, "_reorder_device_packed2", never)
+    jt, pt = split_inputs("int32")
+    node = {"algorithm": algo, "pagesize": 256, "attribute": 1}
+    hash_node = {"fn": "modulo", "range": [1, 4096], "buckets": 16,
+                 "skipbits": 3}
+    pr = P.partitioner_factory(node, hash_node, 4).split(pt)
+    jr = J.partitioner_factory(node, hash_node, 4).split(jt)
+    assert calls == [1]
+    same(pr.sizes, jr.sizes)
+    same(pr.offsets, jr.offsets)
+
+
+def test_kv_route_counts_no_kernel_split_on_the_cpu(monkeypatch, tmp_path):
+    """``kvSplits`` counts the splits that ran the packing kernels and K7:
+    with the kv route open on the CPU both splits take it, through the
+    plain versions, and the line reads 0, its keys and values JAX's."""
+    calls = open_kv_gate(monkeypatch)
+    write_npz(tmp_path, np.int32, False)
+    p_res = P.run_multijoin(npz_conf("independent"),
+                            base_path=str(tmp_path), device=CPU)
+    j_res = J.run_multijoin(npz_conf("independent"),
+                            base_path=str(tmp_path))
+    assert calls == [1, 1]
+    assert p_res.fields["kvSplits"] == 0
+    assert_same_line(p_res, j_res)
+    np.testing.assert_array_equal(row_multiset(p_res.output),
+                                  row_multiset(j_res.output))
+
+
 # ---------------------------------------------------------------------------
 # bounds kernels and worker-block programs
 # ---------------------------------------------------------------------------
