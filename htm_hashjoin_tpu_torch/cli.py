@@ -9,6 +9,9 @@ versions instead (the tests do).
 
 Every ``--algo`` name runs, the mc names (``NPO``, ``NPO_st``, ``PRO``
 ...) included, and so does ``--backend xla`` (the scatter builds).
+``--radixStrategy multipass`` (a flag of the port's; the JAX CLI leaves
+``JoinConfig.radix_strategy`` at ``auto``) runs the radix join's
+fanout-bounded multi-pass partition.
 ``--meshShape`` runs the distributed join (``parallel/dist_join.py``) on a
 mesh of shards placed by the device-mapping file.
 ``--profile DIR`` writes a torch.profiler trace of the join (not of the
@@ -67,6 +70,12 @@ def parse_args(argv=None):
     p.add_argument("--zipfParam", type=float, default=0.75)
     p.add_argument("--radixBits", type=int, default=14)
     p.add_argument("--radixPasses", type=int, default=2)
+    p.add_argument("--radixStrategy", default="auto",
+                   choices=["auto", "sort", "multipass"],
+                   help="radix join machinery: the global-sort plans (auto, "
+                        "sort) or the fanout-bounded multi-pass partition "
+                        "(multipass: --radixBits over --radixPasses passes, "
+                        "parallel_radix_join.c:869-956)")
     p.add_argument("--noProbe", action="store_true",
                    help="build-only (ENABLE_PROBE off)")
     p.add_argument("--noRetry", action="store_true",
@@ -171,6 +180,7 @@ def parse_args(argv=None):
         scale_output=a.scaleOutput, num_partitions=a.numPartitions,
         distinct_keys=a.distinctKeys, seed=a.seed, zipf_param=a.zipfParam,
         radix_bits=a.radixBits, radix_passes=a.radixPasses,
+        radix_strategy=a.radixStrategy,
         s_seed=a.sSeed, s_distr=s_distr,
         enable_probe=not a.noProbe, retry=not a.noRetry, track=a.track,
         adaptive=a.adaptive, switch_sniff=a.switchSniff,

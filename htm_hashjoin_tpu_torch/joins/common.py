@@ -208,6 +208,16 @@ def _max_key_bound(cfg: JoinConfig) -> int:
     return max(cfg.r_size, cfg.s_size or 0, cfg.distinct_keys or 0)
 
 
+def _build_key_bound(cfg: JoinConfig) -> int:
+    """Upper bound on the build side's (R's) key values from the generator
+    contract: R is drawn from 1..|R| or from the alphabet ``distinct_keys``
+    (``data/generators.build_relations``); RANDOM draws the full int32
+    range."""
+    if cfg.data_distr == Distribution.RANDOM:
+        return MAXI32
+    return max(cfg.r_size, cfg.distinct_keys or 0)
+
+
 def use_pallas_engine(cfg: JoinConfig, s: Optional[Relation]) -> bool:
     """The banded engine qualifies for a build+probe: a probe side, keys
     below PACK_LIMIT (the kernels count only those), no mesh, and a backend

@@ -4,10 +4,11 @@ Counterpart of ``htm_hashjoin_tpu/joins/radix.py`` (reference
 mc/src/parallel_radix_join.c:231-1309).  Three routes, as in the JAX
 package:
 
-  * ``radix_strategy="multipass"``: the real fanout-bounded multi-pass
-    partition (``ops/radix_kernels.py``: K2 + K6 a pass), a final tile sort
-    (K2, the per-partition build), and the banded probe (K4; K3 first for
-    an unsorted probe side);
+  * ``radix_strategy="multipass"`` (the CLI's ``--radixStrategy
+    multipass``): the real fanout-bounded multi-pass partition
+    (``ops/radix_kernels.py``: K2 + K6 a pass), a final tile sort (K2, the
+    per-partition build), and the banded probe (K4; K3 first for an
+    unsorted probe side);
   * the engine sort plan, for keys below PACK_LIMIT: ``common.engine_join``
     with the global sort first (K3, then K4/K5) when S is larger than a
     tile;
@@ -38,9 +39,9 @@ from ..utils.profiler import span
 from ..utils.timing import PhaseTimer, fence_outputs, readback
 from .banded_backend import (DEFAULT_TILE, BandedBuild, _key_sum,
                              banded_probe, k3_sort, sort_probe_side)
-from .common import (BandedPlan, _max_key_bound, engine_join, finish_metrics,
-                     join_scope, probes, resolve_relations,
-                     use_pallas_engine)
+from .common import (BandedPlan, _build_key_bound, _max_key_bound,
+                     engine_join, finish_metrics, join_scope, probes,
+                     resolve_relations, use_pallas_engine)
 
 # The multipass tile below 2^17 keys.  The JAX package takes 1024 there;
 # the port's count kernels need a tile larger than their 1024-key overhang
@@ -79,55 +80,76 @@ def _multipass_radix_join(r: Relation, s: Optional[Relation],
     radix_passes change execution.  Partition -> final tile sort (the
     per-partition build) -> banded probe, timed per phase like the
     reference's partition/build/probe split
-    (mc/src/parallel_radix_join.c:1124-1146)."""
+    (mc/src/parallel_radix_join.c:1124-1146), each phase in its span
+    (``hj.partition``, ``hj.build``, ``hj.probe``, then ``hj.line``).
+
+    Only R is partitioned, so the digits are taken over R's key range
+    (``_build_key_bound``), not over both sides': with |S| > |R| (PK ⋈ FK
+    at Workload A's 2^24 ⋈ 2^28) the wider range would leave the top
+    digit bits empty, most partitions without a key and each occupied one
+    wider than a tile, so that the build tiles' S bands pass the count's
+    chunk limit and flag.  Where |S| <= |R| the range is the same.
+
+    Past the JAX line: ``partitionedKeys``, the keys the last pass wrote,
+    padding included (its static size), and ``totalOverflows``, the build
+    tiles the probe flagged and the repair recounted (0 without a
+    probe)."""
     tile = DEFAULT_TILE if cfg.r_size >= (1 << 17) else SMALL_TILE
-    key_bits = max(1, int(_max_key_bound(cfg)).bit_length())
+    key_bits = max(1, int(_build_key_bound(cfg)).bit_length())
     t0 = time.perf_counter()
-    part = multipass_radix_partition(r.keys, radix_bits=cfg.radix_bits,
-                                     passes=cfg.radix_passes,
-                                     key_bits=key_bits, tile=tile)
-    fence_outputs(part.partitioned)      # the partition phase ends here
+    with span("hj.partition"):
+        part = multipass_radix_partition(r.keys, radix_bits=cfg.radix_bits,
+                                         passes=cfg.radix_passes,
+                                         key_bits=key_bits, tile=tile)
+        fence_outputs(part.partitioned)  # the partition phase ends here
     t1 = time.perf_counter()
-    # per-partition build: a tile sort of the value-partitioned stream is
-    # every partition's search structure (partitions are value-contiguous)
-    sorted_flat, stats = sort_tiles(part.partitioned, tile=tile,
-                                    method="bitonic")
-    plans, hist_last = part.pass_plans, part.pass_hists[-1]
-    build = BandedBuild(sorted_flat, stats[:, 0], stats[:, 1], tile, part.n,
-                        0, False)
-    del part                              # the pass output (the build's size)
-    head = torch.stack([_key_sum(r.keys), _key_sum(sorted_flat),
-                        hist_last.amax().to(torch.int64)])
-    fence_outputs(head)
+    with span("hj.build"):
+        # per-partition build: a tile sort of the value-partitioned stream
+        # is every partition's search structure (partitions are
+        # value-contiguous)
+        sorted_flat, stats = sort_tiles(part.partitioned, tile=tile,
+                                        method="bitonic")
+        plans, hist_last = part.pass_plans, part.pass_hists[-1]
+        partitioned_keys = part.partitioned.numel()
+        build = BandedBuild(sorted_flat, stats[:, 0], stats[:, 1], tile,
+                            part.n, 0, False)
+        del part                          # the pass output (the build's size)
+        head = torch.stack([_key_sum(r.keys), _key_sum(sorted_flat),
+                            hist_last.amax().to(torch.int64)])
+        fence_outputs(head)
     t2 = time.perf_counter()
-    matches = None
-    _, skeys = resolve_relations(r, s, cfg)
-    if skeys is not None:
-        s2d = None
-        if not s.assume_sorted:
-            skeys, s2d = sort_probe_side(skeys, tile=tile)
-        matches, _overflow = banded_probe(build, skeys, s2d=s2d)
+    matches, overflow = None, 0
+    with span("hj.probe"):
+        _, skeys = resolve_relations(r, s, cfg)
+        if skeys is not None:
+            s2d = None
+            if not s.assume_sorted:
+                skeys, s2d = sort_probe_side(skeys, tile=tile)
+            matches, overflow = banded_probe(build, skeys, s2d=s2d)
     t3 = time.perf_counter()
-    in_sum, out_sum, max_run = readback(head)
-    m = JoinMetrics(algo="radix", rSize=cfg.r_size,
-                    transactionSize=cfg.transaction_size,
-                    probeLength=cfg.probe_length,
-                    inputSum=in_sum, outputSum=out_sum)
-    m.partitionTimeInMicroseconds = (t1 - t0) * 1e6
-    m.hashBuildTimeInMicroseconds = (t2 - t0) * 1e6
-    if matches is not None:
-        m.totalMatches = matches
-        m.probeTimeInMicroseconds = (t3 - t2) * 1e6
-    m.extra["backend"] = "pallas_multipass_radix"
-    m.extra["radixBits"] = cfg.radix_bits
-    m.extra["numPasses"] = len(plans)
-    m.extra["passBits"] = [p.bits for p in plans]
-    m.extra["passShifts"] = [p.shift for p in plans]
-    m.extra["fanout"] = 1 << cfg.radix_bits
-    m.extra["maxRunSize"] = max_run
-    if m.rSize:
-        m.failedTransactionPercentage = 0.0
-        m.totalFailedPercentage = 0.0
+    with span("hj.line"):
+        in_sum, out_sum, max_run = readback(head)
+        m = JoinMetrics(algo="radix", rSize=cfg.r_size,
+                        transactionSize=cfg.transaction_size,
+                        probeLength=cfg.probe_length,
+                        inputSum=in_sum, outputSum=out_sum,
+                        totalOverflows=overflow)
+        m.partitionTimeInMicroseconds = (t1 - t0) * 1e6
+        m.hashBuildTimeInMicroseconds = (t2 - t0) * 1e6
+        if matches is not None:
+            m.totalMatches = matches
+            m.probeTimeInMicroseconds = (t3 - t2) * 1e6
+        m.extra["backend"] = "pallas_multipass_radix"
+        m.extra["radixBits"] = cfg.radix_bits
+        m.extra["numPasses"] = len(plans)
+        m.extra["passBits"] = [p.bits for p in plans]
+        m.extra["passShifts"] = [p.shift for p in plans]
+        m.extra["fanout"] = 1 << cfg.radix_bits
+        m.extra["maxRunSize"] = max_run
+        m.extra["partitionedKeys"] = partitioned_keys
+        if m.rSize:
+            m.failedTransactionPercentage = 0.0
+            m.totalFailedPercentage = 0.0
     return m
 
 

@@ -18,6 +18,10 @@ from .profiler import span
 #: per join, the host's waits on the device, the keys K3 was given and the
 #: rows handed to the claim step (``joins.common.join_scope``).
 PORT_ONLY_FIELDS = frozenset({"readbacks", "sortedKeys", "claimRows"})
+#: The multipass radix join's further fields of the port alone: the keys
+#: its last pass wrote and the probe's flagged tiles
+#: (``joins.radix._multipass_radix_join``).
+MULTIPASS_ONLY_FIELDS = frozenset({"partitionedKeys", "totalOverflows"})
 
 
 @dataclass

@@ -233,18 +233,26 @@ SPANS = {
     "hj.split": "a multijoin partition split of one side and its fence "
                 "(wisconsin.driver.join_tables: the partitioner's split, "
                 "K7 on the card at reference scale)",
+    "hj.partition": "the multipass radix join's partition passes "
+                    "(ops.radix_kernels.multipass_radix_partition: K2 "
+                    "and K6 a pass) and their fence",
     "hj.build": "a scatter build (joins.common.scatter_join, "
                 "ops/insert.py): its device chain and fence, then the "
                 "spill's readback and any compaction and sort "
                 "(joins.common.SpillState); a multijoin's build "
-                "(the joiner's build and its fence)",
+                "(the joiner's build and its fence); the multipass radix "
+                "join's build (the final tile sort, the key sums and "
+                "their fence)",
     "hj.probe": "a scatter build's probe: the table probe and its fence, "
                 "the spill's probe, and their readbacks; a multijoin's "
                 "probe (the joiner's probe, the output's materialisation "
-                "and its fence)",
+                "and its fence); the multipass radix join's probe (K3 "
+                "on an unsorted S, the banded count, its readback and "
+                "any repair)",
     "hj.line": "building the join's line, and its dict in the reference "
                "schema (JoinMetrics.to_dict, which its caller calls); a "
-               "multijoin's line, the output's sums and their readback",
+               "multijoin's line, the output's sums and their readback; "
+               "the multipass radix join's key sums' readback",
 }
 
 _NO_SPAN = contextlib.nullcontext()

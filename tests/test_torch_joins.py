@@ -33,7 +33,8 @@ from htm_hashjoin_tpu_torch.config import Algo, Distribution, JoinConfig
 from htm_hashjoin_tpu_torch.data.generators import build_relations
 from htm_hashjoin_tpu_torch.joins import adaptive, htm, radix
 from htm_hashjoin_tpu_torch.relation import Relation, keys_from_numpy
-from htm_hashjoin_tpu_torch.utils.metrics import PORT_ONLY_FIELDS
+from htm_hashjoin_tpu_torch.utils.metrics import (MULTIPASS_ONLY_FIELDS,
+                                                  PORT_ONLY_FIELDS)
 from htm_hashjoin_tpu_torch.utils.validate import reference_match_count
 
 N = 1 << 14
@@ -124,7 +125,10 @@ def run_case(name):
 
 
 def assert_lines_agree(got, want):
-    assert set(got) == set(want) | PORT_ONLY_FIELDS
+    port_only = PORT_ONLY_FIELDS
+    if got.get("backend") == "pallas_multipass_radix":
+        port_only |= MULTIPASS_ONLY_FIELDS
+    assert set(got) == set(want) | port_only
     for key in EQUAL:
         assert got.get(key) == want.get(key), key
     if "adaptivePlan" in want:
