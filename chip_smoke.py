@@ -221,6 +221,7 @@ from htm_hashjoin_tpu_torch.ops import fused_sort_count as fsc
 from htm_hashjoin_tpu_torch.ops import global_sort as gs
 from htm_hashjoin_tpu_torch.ops import global_sort_kv as gkv
 from htm_hashjoin_tpu_torch.ops import insert, probe
+from htm_hashjoin_tpu_torch.ops import multijoin_probe as mjp
 from htm_hashjoin_tpu_torch.ops import radix_kernels as rk
 from htm_hashjoin_tpu_torch.ops import rot_pack as rp
 from htm_hashjoin_tpu_torch.ops import rot_unpack as ru
@@ -237,6 +238,7 @@ from htm_hashjoin_tpu_torch.relation import Relation
 from htm_hashjoin_tpu_torch.utils.profiler import tensor_bytes
 from htm_hashjoin_tpu_torch.wisconsin import (CONF_DIR, parse_conf,
                                            run_multijoin)
+from htm_hashjoin_tpu_torch.wisconsin import joiners as wjoin
 from htm_hashjoin_tpu_torch.wisconsin import partitioner as wpart
 from htm_hashjoin_tpu_torch.wisconsin.driver import load_side
 
@@ -264,6 +266,8 @@ KERNELS = {
                  "none: XLA fuses the packing on the TPU"),
     "rot_unpack": (ru, "split_pack.cu",
                    "none: XLA fuses the unpacking on the TPU"),
+    "multijoin_probe": (mjp, "multijoin_probe.cu",
+                        "none: XLA fuses the probe's perm route and emit"),
 }
 # kernels on no path, each with the reason: held to their plain versions
 # and timed, but exempt from the check that a path launched them
@@ -293,6 +297,9 @@ WISCONSIN_CONFS = os.path.join(CONF_DIR, "")
 # partitioner hashes takes the kv split (partitioner.py:236-259)
 CONFS = {"no_partition": False, "independent": True, "parallel": True,
          "radix1": True, "steal": True, "flatmem": True}
+# the confs whose probe runs the probe kernel: a partitioned probe
+# (ProbeIsPart, not steal) of the generated primary-key build, StoreCopy
+PROBE_KERNEL_CONFS = ("independent", "parallel", "radix1")
 
 
 def _require(ok: bool, what: str) -> None:
@@ -1620,6 +1627,51 @@ def _time_packing(keys, shards, t, pay, errs, times, card) -> None:
     times["rot_unpack"]["kernel_phase_launches"] = ru.LAUNCHES - before[1]
 
 
+def _time_probe(keys, shards, t, pay, errs, times, card) -> None:
+    """The probe kernel at the independent conf's full probe: S's 2^28
+    keys and row ids split as K7 splits them (64 partitions), probed in
+    the joiner's 8 worker blocks against a 2^24-key permutation build's
+    payload, exactly as its plain version, then timed over all 8 blocks."""
+    n = keys.numel()
+    ks, vs = gkv.global_sort_kv_tiles(t, pay, tile=wpart.KV_TILE)
+    key_s, col, so = ru.rot_unpack(ks, vs, *KV_LAYOUT, 1 << KV_LAYOUT[2])
+    del ks, vs
+    sizes, offsets = so.tolist()
+    units = [(a, a + z) for a, z in zip(offsets, sizes) if z]
+    blocks = wjoin._balance_unit_blocks(units, shards.nthreads)
+    U = max(b - a for a, b in blocks)
+    ubs = [wjoin._block_ubounds(units, ulo, uhi, U) for ulo, uhi in blocks]
+    ubs = [(a0, torch.from_numpy(ub).to(keys.device)) for a0, ub in ubs]
+    r = 1 << 24
+    payload = torch.randperm(r, device=keys.device).to(torch.int32) + 1
+    out_b = torch.empty(n, dtype=torch.int32, device=keys.device)
+    out_p = torch.empty_like(out_b)
+
+    def run(fn):
+        heads = mjp.new_heads(len(blocks), U, keys.device)
+        for b, (a0, ub) in enumerate(ubs):
+            fn(key_s, col, payload, 1, r, a0, int(ub[-1]), ub, out_b, out_p,
+               heads[b])
+        return heads
+
+    what = f"2^{n.bit_length() - 1} independent probe, {len(blocks)} blocks"
+    before = mjp.LAUNCHES
+    got = run(mjp.multijoin_probe), out_b.clone(), out_p.clone()
+    want = run(mjp.multijoin_probe_ref), out_b, out_p
+    err = max(_err(g, w) for g, w in zip(got, want))
+    errs["multijoin_probe"] = max(errs["multijoin_probe"], err)
+    _require(not err and int(got[0][:, U].sum()) == n,
+             f"multijoin_probe differs from its plain version at {what}, or "
+             f"rows went unmatched")
+    del got, want
+    # the bound counts the output columns, which the timed calls write
+    _time_pair("multijoin_probe", what, lambda: run(mjp.multijoin_probe),
+               lambda: run(mjp.multijoin_probe_ref), errs, times, card,
+               (key_s, col, payload, out_b, out_p))
+    times["multijoin_probe"]["kernel_phase_launches"] = \
+        mjp.LAUNCHES - before
+
+
 def _wisconsin(dev, card, errs, times) -> dict:
     """K7 on few tiles, the six shipped confs at the reference scale
     through run_multijoin, then the split's pack and unpack kernels, K7 and
@@ -1636,8 +1688,9 @@ def _wisconsin(dev, card, errs, times) -> dict:
             f"wisconsin {name}",
             lambda: res.setdefault("r", run_multijoin(conf, device=dev)
                                    ).to_json_line(),
-            {k: int(kv) for k in ("rot_pack", "global_sort_kv_tiles",
-                                  "rot_unpack")}, card)
+            {**{k: int(kv) for k in ("rot_pack", "global_sort_kv_tiles",
+                                     "rot_unpack")},
+             "multijoin_probe": 8 * (name in PROBE_KERNEL_CONFS)}, card)
         peak = torch.cuda.max_memory_allocated()
         r = res.pop("r")
         k7 = counts["global_sort_kv_tiles"]
@@ -1666,6 +1719,8 @@ def _wisconsin(dev, card, errs, times) -> dict:
     # which no path runs any more: its launches here are reported apart
     keys, shards, t, pay = _kv_split_shape(dev)
     _time_packing(keys, shards, t, pay, errs, times, card)
+    _time_probe(keys, shards, t, pay, errs, times, card)
+    torch.cuda.empty_cache()
     del keys
     what = f"2^{t.numel().bit_length() - 1} independent probe split"
     _time_pair("global_sort_kv_tiles", what,

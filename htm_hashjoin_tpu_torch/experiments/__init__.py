@@ -13,14 +13,15 @@ from __future__ import annotations
 from typing import Dict
 
 from ..ops import (banded_count, banded_count_narrow, fused_sort_count,
-                   global_sort, global_sort_kv, insert, probe, rot_pack,
-                   rot_unpack, scatter_tiles, sort_kv_tiles, sort_tiles)
+                   global_sort, global_sort_kv, insert, multijoin_probe, probe,
+                   rot_pack, rot_unpack, scatter_tiles, sort_kv_tiles,
+                   sort_tiles)
 
 RESULTS_DIR = "experiments/results_torch"
 
 # each kernel wrapper by name (K1-K7, K7a, the claim rounds, the table
-# probe, the split's packing): its LAUNCHES counts the calls that launched
-# its kernel
+# probe, the split's packing, the multijoin's probe): its LAUNCHES counts
+# the calls that launched its kernel
 _WRAPPERS = {"fused_sort_count": fused_sort_count, "sort_tiles": sort_tiles,
              "global_sort_tiles": global_sort,
              "banded_count": banded_count,
@@ -28,7 +29,7 @@ _WRAPPERS = {"fused_sort_count": fused_sort_count, "sort_tiles": sort_tiles,
              "scatter_tiles": scatter_tiles, "sort_kv_tiles": sort_kv_tiles,
              "global_sort_kv_tiles": global_sort_kv, "claim_insert": insert,
              "hash_probe": probe, "rot_pack": rot_pack,
-             "rot_unpack": rot_unpack}
+             "rot_unpack": rot_unpack, "multijoin_probe": multijoin_probe}
 
 
 def kernel_launches() -> Dict[str, int]:

@@ -121,6 +121,8 @@ def load_library() -> ctypes.CDLL:
         "htm_hash_probe": [p, p, i, i64, i64, i, i, p, p, p],
         "htm_rot_pack": [p, p, i64, i64, i, i, i, i, i, i64, i64, p, p, p],
         "htm_rot_unpack": [p, i64, i, i, i, i, i, p, p],
+        "htm_multijoin_probe": [p, p, p, i64, i, i, i64, i64, p, i, p, p,
+                                p, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

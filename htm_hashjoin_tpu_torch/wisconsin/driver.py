@@ -33,7 +33,7 @@ from ..utils.profiler import span
 from ..utils.timing import fence_outputs, readback
 from .conf import parse_conf
 from .hashfn import hash_factory
-from . import partitioner
+from . import joiners, partitioner
 from .joiners import BaseJoiner, joiner_factory
 from .partitioner import partitioner_factory
 from .schema import Schema
@@ -43,10 +43,13 @@ from .table import Table, WriteTable, is_strings
 #: the port's fields of the multijoin's line beside the JAX package's keys:
 #: three sums over the output's valid rows, in 64 bits, which depend on
 #: which rows were paired (``output_sums``), the host's waits on the
-#: device over the join (``utils.timing.READBACKS``) and the splits that
-#: ran the pack kernel, K7 and the unpack kernel (``partitioner.KV_SPLITS``)
+#: device over the join (``utils.timing.READBACKS``), the splits that ran
+#: the pack kernel, K7 and the unpack kernel (``partitioner.KV_SPLITS``)
+#: and the probe's worker blocks that ran the probe kernel
+#: (``joiners.PROBE_KERNEL_BLOCKS``)
 PORT_ONLY_FIELDS = frozenset({"outputBuildSum", "outputProbeSum",
-                              "outputPairSum", "readbacks", "kvSplits"})
+                              "outputPairSum", "readbacks", "kvSplits",
+                              "probeKernelBlocks"})
 _SUM_FIELDS = ("outputBuildSum", "outputProbeSum", "outputPairSum")
 
 #: rows of the output a block of the line's sums takes: its int64 copies
@@ -175,8 +178,9 @@ def join_tables(conf: Dict[str, Any], tbuild: Table,
     compute() phases (:112-145), split build side, split probe side, build,
     probe, each ending in a fence of the device work behind its outputs
     and timed in ``timings_ns``; then the line's own numbers (``fields``):
-    the output's sums (``output_sums``), the waits over the call and its
-    splits through the packing kernels and K7.
+    the output's sums (``output_sums``), the waits over the call, its
+    splits through the packing kernels and K7 and its probe's worker
+    blocks through the probe kernel.
 
     Spans: ``hj.join`` around the call, ``hj.split`` around each split,
     ``hj.build`` and ``hj.probe`` around the joiner's two phases,
@@ -184,6 +188,7 @@ def join_tables(conf: Dict[str, Any], tbuild: Table,
     input's columns (``tbuild.columns`` and ``tprobe.columns`` become
     empty): at the 256M-row reference scale the copy costs 2 GB."""
     reads, kv_splits = timing.READBACKS, partitioner.KV_SPLITS
+    probe_blocks = joiners.PROBE_KERNEL_BLOCKS
     timings: Dict[str, int] = {}
     with span("hj.join"):
         # factories (main.cpp:250-255)
@@ -223,6 +228,8 @@ def join_tables(conf: Dict[str, Any], tbuild: Table,
                               readback(output_sums(output, len(sel1)))))
             fields["readbacks"] = timing.READBACKS - reads
             fields["kvSplits"] = partitioner.KV_SPLITS - kv_splits
+            fields["probeKernelBlocks"] = (joiners.PROBE_KERNEL_BLOCKS
+                                           - probe_blocks)
     return MultijoinResult(output, timings, joiner.stats, conf, fields)
 
 

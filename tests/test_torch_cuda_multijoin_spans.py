@@ -6,7 +6,9 @@ its correlation id, on the host's clock), not by its own timestamp:
 every device operation of the join lies inside ``hj.split``, ``hj.build``,
 ``hj.probe`` or ``hj.line``; K7 (``radix_scatter<true>``) and the pack and
 unpack kernels around it run inside ``hj.split``, and the line's
-``kvSplits`` counts both splits; every device-to-host copy and every
+``kvSplits`` counts both splits; the probe kernel runs inside ``hj.probe``,
+once a worker block, and the line's ``probeKernelBlocks`` counts the 8
+blocks; every device-to-host copy and every
 synchronize lies inside an ``hj.readback`` span; and the line's
 ``readbacks`` is the count of those waits.
 
@@ -99,6 +101,10 @@ def test_the_multijoin_waits_and_device_work_lie_in_their_spans(dev,
         assert len(launched) >= 2, name
         assert all(phase(op) == ["hj.split"] for op in launched), name
     assert line["kvSplits"] == 2
+    probes = [op for op in ops if "multijoin_probe_kernel" in op["name"]]
+    assert len(probes) == 8
+    assert all(phase(op) == ["hj.probe"] for op in probes)
+    assert line["probeKernelBlocks"] == 8
 
     copies = [op for op in ops if op["name"].startswith("Memcpy DtoH")]
     for op in copies:

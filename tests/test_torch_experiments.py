@@ -236,7 +236,7 @@ def test_launch_counts_since():
                            "banded_count_narrow", "scatter_tiles",
                            "sort_kv_tiles", "global_sort_kv_tiles",
                            "claim_insert", "hash_probe", "rot_pack",
-                           "rot_unpack"}
+                           "rot_unpack", "multijoin_probe"}
     assert launches_since(before) == {}
     before["sort_tiles"] -= 2
     assert launches_since(before) == {"sort_tiles": 2}

@@ -28,6 +28,7 @@ from htm_hashjoin_tpu.wisconsin import joiners as JJ
 from htm_hashjoin_tpu.wisconsin import partitioner as JP
 from htm_hashjoin_tpu_torch import wisconsin as P
 from htm_hashjoin_tpu_torch.ops import global_sort_kv as gkv
+from htm_hashjoin_tpu_torch.ops import multijoin_probe as MP
 from htm_hashjoin_tpu_torch.wisconsin import joiners as PJ
 from htm_hashjoin_tpu_torch.wisconsin import partitioner as PP
 from htm_hashjoin_tpu_torch.wisconsin.driver import PORT_ONLY_FIELDS
@@ -693,6 +694,226 @@ def test_skewed_build_partition_routes_sorted(monkeypatch):
     assert p_out.num_rows == j_out.num_rows > 0
     for i in (1, 2):
         same(p_out.column(i), j_out.column(i))
+
+
+# ---------------------------------------------------------------------------
+# the probe kernel's route (ops/multijoin_probe.py), its plain version here
+# ---------------------------------------------------------------------------
+
+def open_probe_gate(monkeypatch):
+    """Let CPU tensors take the probe kernel's route (the card's), through
+    the plain version, and count the blocks handed to it."""
+    calls = []
+    orig = PJ.multijoin_probe
+    monkeypatch.setattr(PJ, "_on_card", lambda keys: True)
+    monkeypatch.setattr(PJ, "multijoin_probe",
+                        lambda *a, **k: calls.append(1) or orig(*a, **k))
+    return calls
+
+
+def run_routes(monkeypatch, build, probe, joiner_kw, part=(1, 512, 16),
+               hash_args=(1, 512, 64)):
+    """The same join through the port's torch route (the gate shut), the
+    probe kernel's route (the gate open) and JAX's joiner.  The open route
+    equals JAX's in its output, stats and schedule, and the torch route in
+    every output value, the capacity's tail included.  Returns the open
+    route's output, joiner, the blocks handed to the route and the blocks
+    it kept (``PROBE_KERNEL_BLOCKS``)."""
+    p_out, p_j, j_j = run_both(build, probe, joiner_kw, part_b=part,
+                               part_p=part, hash_args=hash_args)
+    calls = open_probe_gate(monkeypatch)
+    kept = PJ.PROBE_KERNEL_BLOCKS
+    o_out, o_j, _ = run_both(build, probe, joiner_kw, part_b=part,
+                             part_p=part, hash_args=hash_args)
+    kept = PJ.PROBE_KERNEL_BLOCKS - kept
+    assert len(o_out.columns) == len(p_out.columns)
+    for got, want in zip(o_out.columns, p_out.columns):
+        same(got, want)
+    same(o_j.stats.partition_probe_costs, p_j.stats.partition_probe_costs)
+    same(o_j._last_unit_totals, p_j._last_unit_totals)
+    return o_out, o_j, len(calls), kept
+
+
+@pytest.mark.parametrize("n_s", [2048, 2047, 1000, 5])
+def test_probe_kernel_route_matches_the_torch_emit_and_jax(monkeypatch, n_s):
+    """A ProbeIsPart probe of a permutation build: every worker block
+    takes the route, the emit is skipped, and the output (with the torch
+    emit's tail past a ragged n), the unit totals, the partition costs and
+    the schedule equal the torch route's and JAX's."""
+    build, probe = pk_fk(512, n_s, 11)
+    out, pj, calls, kept = run_routes(
+        monkeypatch, build, probe,
+        dict(partition_build=True, partition_probe=True, nthreads=4))
+    sched = pj.stats.probe_schedule
+    assert (sched["policy"], sched["route"]) == ("probe_is_part", "perm")
+    blocks = len(PJ._balance_unit_blocks(
+        [(a, a + n) for a, n, _ in sched["units"]], 4))
+    assert calls == kept == blocks == min(4, len(sched["units"]))
+    assert out.num_rows == n_s
+    assert out.columns[0].numel() == max(8, next_pow2(n_s))
+    assert int(pj._last_unit_totals.sum()) == n_s
+
+
+def test_probe_key_outside_the_build_takes_the_torch_route(monkeypatch):
+    """A probe key past kmax voids the certificate in its block's head:
+    the route's output is dropped, none of its blocks counts, and the
+    torch route runs from the start, equal to JAX's."""
+    build, probe = pk_fk(512, 2048, 12)
+    cols = [probe[0].column(1).copy(), probe[0].column(2)]
+    cols[0][[7, 1500]] = [600, 513]
+    probe = both_tables(cols)
+    out, pj, calls, kept = run_routes(
+        monkeypatch, build, probe,
+        dict(partition_build=True, partition_probe=True, nthreads=4))
+    assert calls == 4 and kept == 0
+    assert out.num_rows == 2046
+    assert pj.stats.probe_schedule["route"] == "perm"
+
+
+def test_negative_probe_keys_do_not_void_the_heads():
+    """A key < 0 matches nothing and does not void the all-unit flag (the
+    schedule's padding): the route's heads equal ``_block_bounds_perm``'s
+    over the torch route's padded window, block by block."""
+    rng = np.random.default_rng(4)
+    keys = rng.integers(5, 517, 3000).astype(np.int32)
+    keys[[3, 900, 2999]] = [-1, -7, -(1 << 30) + 1]
+    units = [(0, 700), (700, 1500), (1500, 1501), (1501, 3000)]
+    blocks = PJ._balance_unit_blocks(units, 2)
+    U = max(b - a for a, b in blocks)
+    W = next_pow2(3000)
+    pk = torch.from_numpy(keys)
+    pk_pad = torch.cat([pk, pk.new_full((W,), -1)])
+    payload = torch.arange(512, dtype=torch.int32) * 3
+    col = torch.arange(3000, dtype=torch.int32)
+    out_b, out_p = torch.empty_like(col), torch.empty_like(col)
+    heads = MP.new_heads(len(blocks), U, CPU)
+    for b, (ulo, uhi) in enumerate(blocks):
+        a0, ub = PJ._block_ubounds(units, ulo, uhi, U)
+        ub = torch.from_numpy(ub)
+        MP.multijoin_probe(pk, col, payload, 5, 516, a0, int(ub[-1]), ub,
+                           out_b, out_p, heads[b])
+        lo, _, want = PJ._block_bounds_perm(W, pk_pad, a0, ub, 5, 516)
+        got = heads[b]
+        same(got[:U], want[:U])
+        assert int(got[U + 1]) == int(want[U + 1]) == 1
+        rows = slice(a0, a0 + int(ub[-1]))
+        same(out_b[rows], payload[lo[:int(ub[-1])]])
+    assert int(heads[:, U].sum()) == 2997
+    same(out_p, col)
+
+
+def port_join(build, probe, part=(1, 512, 16)):
+    """The port's ProbeIsPart join of a build and a probe table."""
+    joiner = P.HashJoiner(P.ModuloHash(1, 512, 64), partition_build=True,
+                          partition_probe=True, nthreads=4)
+    joiner.init(build.schema, [2], 1, probe.schema, [2], 1)
+    split = P.ParallelPartitioner(P.ModuloHash(*part)).split
+    joiner.build(split(build))
+    return joiner.probe(split(probe)), joiner
+
+
+def test_an_empty_probe_takes_no_block(monkeypatch):
+    """Reference fault #10: JAX's emit gathers the empty probe column at
+    index 0 and raises.  The port returns an empty output, on the route's
+    gate open or shut, and no block takes the route."""
+    build, _ = pk_fk(512, 8, 13)
+    empty = both_tables([np.zeros(0, np.int32), np.zeros(0, np.int32)])
+    j = J.HashJoiner(J.ModuloHash(1, 512, 64), partition_build=True,
+                     partition_probe=True, nthreads=4)
+    j.init(build[0].schema, [2], 1, empty[0].schema, [2], 1)
+    j_split = J.ParallelPartitioner(J.ModuloHash(1, 512, 16)).split
+    j.build(j_split(build[0]))
+    with pytest.raises(TypeError, match="out of range"):
+        j.probe(j_split(empty[0]))
+    shut, _ = port_join(build[1], empty[1])
+    calls = open_probe_gate(monkeypatch)
+    out, pj = port_join(build[1], empty[1])
+    assert calls == [] and out.num_rows == shut.num_rows == 0
+    assert pj.stats.output_rows == 0
+    for got, want in zip(out.columns, shut.columns):
+        same(got, want)
+
+
+def test_negative_probe_keys_match_nothing_on_either_route(monkeypatch):
+    """Reference fault #11: a negative probe key keeps the all-unit flag
+    (it is the schedule's padding), so JAX's identity emit pairs the rows
+    in order and cuts the last ones off (or raises where the count's
+    capacity is below the probe's).  The port takes the identity only where
+    every row matched: on the torch route and, through its fallback, on
+    the kernel's, the output is the exact join."""
+    build, probe = pk_fk(512, 2048, 16)
+    keys = probe[1].column(1).numpy().copy()
+    keys[[0, 5, 2047]] = [-1, -3, -(1 << 20)]
+    probe = both_tables([keys, np.arange(1, 2049, dtype=np.int32)])
+    rid_of_key = np.zeros(513, np.int64)
+    rid_of_key[build[1].column(1).numpy()] = build[1].column(2).numpy()
+    hit = keys > 0
+    want = np.sort((rid_of_key[keys[hit]] << 32)
+                   | np.arange(1, 2049)[hit])
+    shut, _ = port_join(build[1], probe[1])
+    calls = open_probe_gate(monkeypatch)
+    out, pj = port_join(build[1], probe[1])
+    assert len(calls) == 4 and pj.stats.probe_schedule["route"] == "perm"
+    for res in (shut, out):
+        assert res.num_rows == 2045
+        np.testing.assert_array_equal(row_multiset(res), want)
+
+
+def int64_pk_fk():
+    return pk_fk(512, 2048, 14, dtype=np.int64)
+
+
+@pytest.mark.parametrize("case", ["steal", "dense", "pointer", "int64",
+                                  "two selected columns"])
+def test_other_lattice_points_keep_the_torch_route(monkeypatch, case):
+    """ProbeSteal (its partition costs need every row's match range), the
+    dense route (duplicate build keys), StorePointer, int64 columns and
+    more than one selected column take the torch route with the gate open,
+    equal to JAX's."""
+    kw = dict(partition_build=True, partition_probe=True, nthreads=4)
+    part_b = part_p = (1, 512, 16)
+    sel = ([2], [2])
+    build, probe = pk_fk(512, 2048, 15)
+    if case == "steal":
+        kw, part_b, part_p = dict(steal=True, nthreads=4), None, (1, 512, 8)
+    elif case == "dense":
+        build, probe = dup_tables()
+    elif case == "pointer":
+        kw["storage"] = "pointer"
+    elif case == "int64":
+        build, probe = int64_pk_fk()
+    else:
+        sel = ([2, 1], [2])
+    calls = open_probe_gate(monkeypatch)
+    kept = PJ.PROBE_KERNEL_BLOCKS
+    _, pj, _ = run_both(build, probe, kw, part_b=part_b, part_p=part_p,
+                        sel=sel)
+    assert calls == [] and PJ.PROBE_KERNEL_BLOCKS == kept
+    assert pj.stats.probe_schedule["route"] == \
+        ("dense" if case == "dense" else "perm")
+
+
+def test_run_multijoin_counts_the_probe_kernel_blocks(monkeypatch, tmp_path):
+    """Through ``join_tables``: with the gate open every worker block of
+    the shared tables' partitioned probe takes the route
+    (``probeKernelBlocks`` 4, a port-only field), the line otherwise
+    JAX's; with it shut (the CPU's route) the field reads 0."""
+    write_npz(tmp_path, np.int32, False)
+    j_res = J.run_multijoin(npz_conf("independent"),
+                            base_path=str(tmp_path))
+    shut = P.run_multijoin(npz_conf("independent"), base_path=str(tmp_path),
+                           device=CPU)
+    calls = open_probe_gate(monkeypatch)
+    p_res = P.run_multijoin(npz_conf("independent"), base_path=str(tmp_path),
+                            device=CPU)
+    assert shut.fields["probeKernelBlocks"] == 0
+    assert p_res.fields["probeKernelBlocks"] == len(calls) == 4
+    assert "probeKernelBlocks" in PORT_ONLY_FIELDS
+    for res in (shut, p_res):
+        assert_same_line(res, j_res)
+        np.testing.assert_array_equal(row_multiset(res.output),
+                                      row_multiset(j_res.output))
+    same(p_res.stats.partition_probe_costs, j_res.stats.partition_probe_costs)
 
 
 def test_string_payload_join_matches_jax():
