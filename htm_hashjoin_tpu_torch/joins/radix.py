@@ -81,7 +81,8 @@ def _multipass_radix_join(r: Relation, s: Optional[Relation],
     per-partition build) -> banded probe, timed per phase like the
     reference's partition/build/probe split
     (mc/src/parallel_radix_join.c:1124-1146), each phase in its span
-    (``hj.partition``, ``hj.build``, ``hj.probe``, then ``hj.line``).
+    (``hj.plan`` for the tile and the digits' width, then
+    ``hj.partition``, ``hj.build``, ``hj.probe`` and ``hj.line``).
 
     Only R is partitioned, so the digits are taken over R's key range
     (``_build_key_bound``), not over both sides': with |S| > |R| (PK ⋈ FK
@@ -94,8 +95,9 @@ def _multipass_radix_join(r: Relation, s: Optional[Relation],
     padding included (its static size), and ``totalOverflows``, the build
     tiles the probe flagged and the repair recounted (0 without a
     probe)."""
-    tile = DEFAULT_TILE if cfg.r_size >= (1 << 17) else SMALL_TILE
-    key_bits = max(1, int(_build_key_bound(cfg)).bit_length())
+    with span("hj.plan"):
+        tile = DEFAULT_TILE if cfg.r_size >= (1 << 17) else SMALL_TILE
+        key_bits = max(1, int(_build_key_bound(cfg)).bit_length())
     t0 = time.perf_counter()
     with span("hj.partition"):
         part = multipass_radix_partition(r.keys, radix_bits=cfg.radix_bits,

@@ -35,6 +35,7 @@ import torch
 from .scatter_tiles import MAX_FANOUT, scatter_tiles
 from .sort_tiles import sort_tiles
 from ..constants import LANES, MAXI32
+from ..utils.profiler import span
 
 CH = 16   # the TPU kernel's copy granule in rows (CH*128 = 2048 keys)
 
@@ -202,7 +203,9 @@ def multipass_radix_partition(keys: torch.Tensor, *, radix_bits: int = 14,
     """Value-partition int32 keys into 2^radix_bits MSB ranges in
     ``passes`` fanout-bounded passes (K2 then K6 each).  The output is
     partition-contiguous (value-ordered) with interspersed MAXI32 row
-    padding; a final tile sort turns it into the banded build artifact."""
+    padding; a final tile sort turns it into the banded build artifact.
+    Each pass's planning between K2 and K6, and the next pass's parents
+    after an intermediate K6, are ``hj.passplan`` spans."""
     rows_per_tile = tile // LANES
     n = keys.numel()
     plans = plan_passes(key_bits, radix_bits, passes)
@@ -214,13 +217,14 @@ def multipass_radix_partition(keys: torch.Tensor, *, radix_bits: int = 14,
     for i, p in enumerate(plans):
         fanout = 1 << p.bits
         sorted_flat, _ = sort_tiles(cur, tile=tile, method="bitonic")
-        bounds = tile_digit_bounds(sorted_flat, fanout=fanout, shift=p.shift,
-                                   tile=tile)
         align = i + 1 < len(plans)          # intermediate regions tile-aligned
-        plan = scatter_plan(bounds, parent, fanout=fanout,
-                            rows_per_tile=rows_per_tile, align_tiles=align,
-                            n_parents=n_parents)
-        del bounds
+        with span("hj.passplan"):
+            bounds = tile_digit_bounds(sorted_flat, fanout=fanout,
+                                       shift=p.shift, tile=tile)
+            plan = scatter_plan(bounds, parent, fanout=fanout,
+                                rows_per_tile=rows_per_tile,
+                                align_tiles=align, n_parents=n_parents)
+            del bounds
         cur = scatter_tiles(sorted_flat, plan.a_elem, plan.dest_row,
                             tile=tile, out_rows=plan.out_rows)
         del sorted_flat
@@ -228,6 +232,8 @@ def multipass_radix_partition(keys: torch.Tensor, *, radix_bits: int = 14,
         n_tiles = cur.numel() // tile
         n_parents *= fanout                 # region ids are parent-major
         if align:
-            parent = _parents_from_regions(plan.region_rows, n_tiles=n_tiles,
-                                           rows_per_tile=rows_per_tile)
+            with span("hj.passplan"):
+                parent = _parents_from_regions(
+                    plan.region_rows, n_tiles=n_tiles,
+                    rows_per_tile=rows_per_tile)
     return RadixPartitionResult(cur, plans, hists, n)

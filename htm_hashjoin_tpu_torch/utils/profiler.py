@@ -221,7 +221,11 @@ SPANS = {
     "hj.plan": "the planner's host work: route, guess, dial, what to do "
                "after a readback; around an engine call "
                "(joins.common.engine_join, the dial's replan) also the "
-               "engine's host work between its own spans",
+               "engine's host work between its own spans; the multipass "
+               "radix join's tile and digit width "
+               "(joins.radix._multipass_radix_join); the multijoin's "
+               "factories and the joiner's init "
+               "(wisconsin.driver.join_tables)",
     "hj.enqueue": "issuing the join's device chain",
     "hj.readback": "a host wait on the device, and its copy "
                    "(timing.readback, timing.fence_outputs)",
@@ -236,6 +240,15 @@ SPANS = {
     "hj.partition": "the multipass radix join's partition passes "
                     "(ops.radix_kernels.multipass_radix_partition: K2 "
                     "and K6 a pass) and their fence",
+    "hj.passplan": "a multipass partition's small planning ops, whose "
+                   "issue the card waits for: each pass's digit bounds "
+                   "and scatter plan between its K2 and K6, and the next "
+                   "pass's tile parents after an intermediate K6",
+    "hj.schedule": "a multijoin probe's host work that the card waits "
+                   "for (wisconsin.joiners.HashJoiner): the schedule, "
+                   "the checks, uploads and allocations before the first "
+                   "block, the measured schedule after the heads' "
+                   "readback, and the per-partition costs",
     "hj.build": "a scatter build (joins.common.scatter_join, "
                 "ops/insert.py): its device chain and fence, then the "
                 "spill's readback and any compaction and sort "

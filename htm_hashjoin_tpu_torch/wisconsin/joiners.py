@@ -50,7 +50,7 @@ import torch
 
 from ..ops.multijoin_probe import multijoin_probe, new_heads
 from ..relation import next_pow2
-from ..utils.profiler import sync_stats
+from ..utils.profiler import span, sync_stats
 from ..utils.timing import readback, readback_array
 from .hashfn import HashFunction
 from .partitioner import PartitionedTable, RadixPartitioner
@@ -779,37 +779,38 @@ class HashJoiner(BaseJoiner):
         all_unit).  Worker spans are the measured completion deltas of the
         device-serialized blocks — the per-thread rdtsc span analog
         (main.cpp:75-94); per-unit micros apportion each worker's span by
-        unit rows."""
+        unit rows.  An ``hj.schedule`` span: the card waits on it."""
         policy, units, blocks, route, U = plan
-        times = [0.0] * len(units)
-        worker_us = [0.0] * self.nthreads
-        unit_totals = np.zeros((len(units),), np.int64)
-        total = 0
-        all_unit = True
-        prev = origin
-        for w, ((ulo, uhi), hd, mark) in enumerate(zip(blocks, heads,
-                                                       marks)):
-            worker_us[w] = mark.micros_since(prev)
-            prev = mark
-            unit_totals[ulo:uhi] = hd[:uhi - ulo]
-            # the block's W-row window may overlap the next block's rows
-            # (shared shape) — the boundary-clamped unit totals are the
-            # exact per-block contribution, hd[U] is not
-            total += int(hd[:uhi - ulo].sum())
-            all_unit = all_unit and bool(hd[U + 1])
-            wrows = units[uhi - 1][1] - units[ulo][0]
-            for i in range(ulo, uhi):
-                times[i] = worker_us[w] * (units[i][1] - units[i][0]) \
-                    / max(1, wrows)
-        self._last_unit_totals = unit_totals
-        self.stats.probe_schedule = {
-            "policy": policy,
-            "route": route,
-            "units": [(a, b - a, us)
-                      for (a, b), us in zip(units, times)],
-            "worker_micros": worker_us,
-            "imbalance": sync_stats(worker_us)["imbalance"],
-        }
+        with span("hj.schedule"):
+            times = [0.0] * len(units)
+            worker_us = [0.0] * self.nthreads
+            unit_totals = np.zeros((len(units),), np.int64)
+            total = 0
+            all_unit = True
+            prev = origin
+            for w, ((ulo, uhi), hd, mark) in enumerate(zip(blocks, heads,
+                                                           marks)):
+                worker_us[w] = mark.micros_since(prev)
+                prev = mark
+                unit_totals[ulo:uhi] = hd[:uhi - ulo]
+                # the block's W-row window may overlap the next block's rows
+                # (shared shape) — the boundary-clamped unit totals are the
+                # exact per-block contribution, hd[U] is not
+                total += int(hd[:uhi - ulo].sum())
+                all_unit = all_unit and bool(hd[U + 1])
+                wrows = units[uhi - 1][1] - units[ulo][0]
+                for i in range(ulo, uhi):
+                    times[i] = worker_us[w] * (units[i][1] - units[i][0]) \
+                        / max(1, wrows)
+            self._last_unit_totals = unit_totals
+            self.stats.probe_schedule = {
+                "policy": policy,
+                "route": route,
+                "units": [(a, b - a, us)
+                          for (a, b), us in zip(units, times)],
+                "worker_micros": worker_us,
+                "imbalance": sync_stats(worker_us)["imbalance"],
+            }
         return total, all_unit
 
     def _scheduled_probe(self, parts: PartitionedTable, probe_keys,
@@ -820,30 +821,32 @@ class HashJoiner(BaseJoiner):
         completion (a CUDA event on the card), and the blocks' small heads
         are read back together, one wait (``_record_schedule``).
         ProbeIsPart and ProbeSteal produce different decompositions
-        (different measured schedules), identical results."""
+        (different measured schedules), identical results.  The host
+        planning of the pad is an ``hj.schedule`` span."""
         policy, units, blocks, route, U = plan
-        W = max(8, next_pow2(max(units[b - 1][1] - units[a][0]
-                                 for a, b in blocks)))
         dev = probe_keys.device
-        # one shape serves every block: pad unit counts to U, rows to W;
-        # pad probe keys once so every slice is in-bounds.  Pad keys are
-        # NEGATIVE sentinels below every real key (dense/perm routes
-        # exclude key < 0; searched routes sort them below all certified
-        # keys) — they match nothing and do not void the per-unit identity
-        # certificate.
-        if route in ("perm", "dense"):
-            pad_val, use_i32 = -1, True
-        else:
-            kb = (_keys_absmax(self._build_keys_sorted, probe_keys)
-                  if probe_keys.element_size() <= 4
-                  and self._build_keys_sorted.element_size() <= 4
-                  else _I32_COMP_LIMIT)
-            use_i32 = kb < _I32_COMP_LIMIT
-            pad_val = _PAD_PROBE_I32 if use_i32 else _PAD_PROBE_I64
-            if not use_i32 and probe_keys.element_size() <= 4:
-                # int64 route with narrow probe keys: widen once so the
-                # pad sentinel sits strictly outside the key domain
-                probe_keys = probe_keys.long()
+        with span("hj.schedule"):
+            W = max(8, next_pow2(max(units[b - 1][1] - units[a][0]
+                                     for a, b in blocks)))
+            # one shape serves every block: pad unit counts to U, rows to
+            # W; pad probe keys once so every slice is in-bounds.  Pad keys
+            # are NEGATIVE sentinels below every real key (dense/perm
+            # routes exclude key < 0; searched routes sort them below all
+            # certified keys) — they match nothing and do not void the
+            # per-unit identity certificate.
+            if route in ("perm", "dense"):
+                pad_val, use_i32 = -1, True
+            else:
+                kb = (_keys_absmax(self._build_keys_sorted, probe_keys)
+                      if probe_keys.element_size() <= 4
+                      and self._build_keys_sorted.element_size() <= 4
+                      else _I32_COMP_LIMIT)
+                use_i32 = kb < _I32_COMP_LIMIT
+                pad_val = _PAD_PROBE_I32 if use_i32 else _PAD_PROBE_I64
+                if not use_i32 and probe_keys.element_size() <= 4:
+                    # int64 route with narrow probe keys: widen once so
+                    # the pad sentinel sits strictly outside the key domain
+                    probe_keys = probe_keys.long()
         pk_pad = torch.cat([probe_keys, probe_keys.new_full((W,), pad_val)])
 
         def block_args(ulo, uhi):
@@ -911,26 +914,30 @@ class HashJoiner(BaseJoiner):
         Returns the output, or None where the route is not taken or the
         heads void the certificate (a probe key with no match): the
         speculative output is then dropped, and the caller runs the torch
-        route from the start."""
+        route from the start.  Everything before the first launch is an
+        ``hj.schedule`` span; the launches and the heads' readback are
+        not."""
         global PROBE_KERNEL_BLOCKS
         policy, units, blocks, route, U = plan
-        if (route != "perm" or policy != "probe_is_part"
-                or self.storage != "copy" or len(self._build_payload) != 1
-                or len(self.sel2) != 1 or not _on_card(probe_keys)):
-            return None
-        payload, col = self._build_payload[0], table.column(self.sel2[0])
-        if not all(isinstance(c, torch.Tensor) and c.dtype == torch.int32
-                   and c.dim() == 1 for c in (probe_keys, payload, col)):
-            return None
-        keys, col = probe_keys.contiguous(), col.contiguous()
-        dev = keys.device
-        cap = max(8, next_pow2(n))
-        out_build = torch.empty((cap,), dtype=torch.int32, device=dev)
-        out_probe = torch.empty_like(out_build)
-        ubs = np.stack([_block_ubounds(units, ulo, uhi, U)[1]
-                        for ulo, uhi in blocks])
-        ubs = _upload(ubs, dev)
-        heads = new_heads(len(blocks), U, dev)
+        with span("hj.schedule"):
+            if (route != "perm" or policy != "probe_is_part"
+                    or self.storage != "copy"
+                    or len(self._build_payload) != 1
+                    or len(self.sel2) != 1 or not _on_card(probe_keys)):
+                return None
+            payload, col = self._build_payload[0], table.column(self.sel2[0])
+            if not all(isinstance(c, torch.Tensor) and c.dtype == torch.int32
+                       and c.dim() == 1 for c in (probe_keys, payload, col)):
+                return None
+            keys, col = probe_keys.contiguous(), col.contiguous()
+            dev = keys.device
+            cap = max(8, next_pow2(n))
+            out_build = torch.empty((cap,), dtype=torch.int32, device=dev)
+            out_probe = torch.empty_like(out_build)
+            ubs = np.stack([_block_ubounds(units, ulo, uhi, U)[1]
+                            for ulo, uhi in blocks])
+            ubs = _upload(ubs, dev)
+            heads = new_heads(len(blocks), U, dev)
         origin = _Mark(dev)
         marks = []
         for b, (ulo, uhi) in enumerate(blocks):
@@ -964,27 +971,30 @@ class HashJoiner(BaseJoiner):
 
         output = None
         if (self.partition_probe or self.steal) and n:
-            plan = self._schedule(parts, probe_keys, n)
+            with span("hj.schedule"):
+                plan = self._schedule(parts, probe_keys, n)
             output = self._kernel_probe(table, probe_keys, n, plan)
             if output is None:
                 lo, hi, total, all_unit = self._scheduled_probe(
                     parts, probe_keys, plan)
-            if self.stats.probe_schedule["policy"] == "probe_is_part":
-                # units ARE the nonempty partitions: per-partition cost =
-                # in-block unit totals + rows, no extra device pass
-                sizes_np = np.asarray(parts.sizes, np.int64)
-                costs = np.zeros((parts.nparts,), np.int64)
-                nz = np.where(sizes_np > 0)[0]
-                costs[nz] = self._last_unit_totals + sizes_np[nz]
-                self.stats.partition_probe_costs = costs
-            else:
-                # steal chunks cross partition bounds
-                starts = _upload(np.asarray(parts.offsets, np.int64),
-                                 lo.device)
-                ends = starts + _upload(np.asarray(parts.sizes, np.int64),
-                                        lo.device)
-                self.stats.partition_probe_costs = host(
-                    _partition_costs(lo, hi, starts, ends))
+            with span("hj.schedule"):
+                if self.stats.probe_schedule["policy"] == "probe_is_part":
+                    # units ARE the nonempty partitions: per-partition
+                    # cost = in-block unit totals + rows, no extra device
+                    # pass
+                    sizes_np = np.asarray(parts.sizes, np.int64)
+                    costs = np.zeros((parts.nparts,), np.int64)
+                    nz = np.where(sizes_np > 0)[0]
+                    costs[nz] = self._last_unit_totals + sizes_np[nz]
+                    self.stats.partition_probe_costs = costs
+                else:
+                    # steal chunks cross partition bounds
+                    starts = _upload(np.asarray(parts.offsets, np.int64),
+                                     lo.device)
+                    ends = starts + _upload(
+                        np.asarray(parts.sizes, np.int64), lo.device)
+                    self.stats.partition_probe_costs = host(
+                        _partition_costs(lo, hi, starts, ends))
         else:
             lo, hi, total, all_unit = self._bounds(probe_keys)
         if output is not None:

@@ -10,7 +10,9 @@ unpack kernels around it run inside ``hj.split``, and the line's
 once a worker block, and the line's ``probeKernelBlocks`` counts the 8
 blocks; every device-to-host copy and every
 synchronize lies inside an ``hj.readback`` span; and the line's
-``readbacks`` is the count of those waits.
+``readbacks`` is the count of those waits.  The probe's pinned uploads
+are issued inside ``hj.schedule`` and its launches directly inside
+``hj.probe``; nothing is issued directly inside ``hj.join``.
 
 Needs a CUDA device and nvcc; elsewhere every test skips.  The file
 imports no jax:
@@ -57,8 +59,11 @@ def covers(outer, ev):
                                               outer)
 
 
-def test_the_multijoin_waits_and_device_work_lie_in_their_spans(dev,
-                                                                tmp_path):
+def traced_join(dev, tmp_path):
+    """One traced join of the cell after a warm-up: its line, the trace's
+    complete events, its ``hj.join`` event, the runtime calls inside it by
+    correlation id and the device operations they issued.  K7 splits both
+    sides."""
     cell = cells.load(NAME, ARGV)
     entry = cell.entry
     state = entry.prepare(cell, SEED, dev)
@@ -78,10 +83,6 @@ def test_the_multijoin_waits_and_device_work_lie_in_their_spans(dev,
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("ph") == "X" and "ts" in e]
     (join,) = [e for e in events if e["name"] == "hj.join"]
-    spans = {name: [e for e in events if e["name"] == name
-                    and covers(join, e)]
-             for name in (*PHASES, "hj.readback")}
-    assert [len(spans[n]) for n in PHASES] == [2, 1, 1, 1]
     calls = {e["args"]["correlation"]: e for e in events
              if e.get("cat") == "cuda_runtime"
              and "correlation" in e.get("args", {}) and within(e["ts"], join)}
@@ -89,6 +90,16 @@ def test_the_multijoin_waits_and_device_work_lie_in_their_spans(dev,
            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
            and e.get("args", {}).get("correlation") in calls]
     assert ops
+    return line, events, join, calls, ops
+
+
+def test_the_multijoin_waits_and_device_work_lie_in_their_spans(dev,
+                                                                tmp_path):
+    line, events, join, calls, ops = traced_join(dev, tmp_path)
+    spans = {name: [e for e in events if e["name"] == name
+                    and covers(join, e)]
+             for name in (*PHASES, "hj.readback")}
+    assert [len(spans[n]) for n in PHASES] == [2, 1, 1, 1]
 
     def phase(op):
         call = calls[op["args"]["correlation"]]
@@ -117,3 +128,29 @@ def test_the_multijoin_waits_and_device_work_lie_in_their_spans(dev,
     assert len(copies) + len(syncs) == len(spans["hj.readback"]) \
         == line["readbacks"] == READBACKS
     assert line["outputRows"] == 1 << 24
+
+
+def test_the_probes_host_work_lies_in_hj_schedule(dev, tmp_path):
+    """The probe's two pinned uploads (the blocks' unit bounds, the heads)
+    are issued inside ``hj.schedule``; the eight probe launches directly
+    inside ``hj.probe``, none inside ``hj.schedule``; and no device
+    operation is issued directly inside ``hj.join``."""
+    line, events, join, calls, ops = traced_join(dev, tmp_path)
+    spans = [e for e in events
+             if e["name"].startswith("hj.") and covers(join, e)]
+    assert len([e for e in spans if e["name"] == "hj.schedule"]) == 4
+
+    def where(op):
+        call = calls[op["args"]["correlation"]]
+        return min((s for s in spans if covers(s, call)),
+                   key=lambda s: s["dur"])
+
+    (probe,) = [e for e in spans if e["name"] == "hj.probe"]
+    uploads = [op for op in ops if op["name"].startswith("Memcpy HtoD")
+               and covers(probe, calls[op["args"]["correlation"]])]
+    assert len(uploads) == 2
+    assert all(where(op)["name"] == "hj.schedule" for op in uploads)
+    probes = [op for op in ops if "multijoin_probe_kernel" in op["name"]]
+    assert len(probes) == line["probeKernelBlocks"] == 8
+    assert all(where(op) is probe for op in probes)
+    assert [op["name"] for op in ops if where(op) is join] == []

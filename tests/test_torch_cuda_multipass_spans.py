@@ -9,6 +9,8 @@ K6 (``scatter_tiles_kernel``) run inside ``hj.partition``, K3 and K4
 inside ``hj.probe``; every device-to-host copy and every synchronize lies
 inside an ``hj.readback`` span; the line's ``readbacks`` is the count of
 those waits, and it carries ``partitionedKeys`` and ``totalOverflows``.
+The passes' planning ops are issued inside ``hj.passplan``, K2 and K6
+directly inside ``hj.partition``; nothing directly inside ``hj.join``.
 
 Needs a CUDA device and nvcc; elsewhere every test skips.  The file
 imports no jax:
@@ -54,8 +56,11 @@ def covers(outer, ev):
                                               outer)
 
 
-def test_the_multipass_waits_and_device_work_lie_in_their_spans(dev,
-                                                               tmp_path):
+def traced_join(dev, tmp_path):
+    """One traced join of the cell after a warm-up: its line, the trace's
+    complete events, its ``hj.join`` event, the runtime calls inside it by
+    correlation id and the device operations they issued.  K6 runs once a
+    pass."""
     cell = cells.load(NAME, ARGV)
     entry = cell.entry
     state = entry.prepare(cell, SEED, dev)
@@ -75,10 +80,6 @@ def test_the_multipass_waits_and_device_work_lie_in_their_spans(dev,
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("ph") == "X" and "ts" in e]
     (join,) = [e for e in events if e["name"] == "hj.join"]
-    spans = {name: [e for e in events if e["name"] == name
-                    and covers(join, e)]
-             for name in (*PHASES, "hj.readback")}
-    assert [len(spans[n]) for n in PHASES] == [1, 1, 1, 1]
     calls = {e["args"]["correlation"]: e for e in events
              if e.get("cat") == "cuda_runtime"
              and "correlation" in e.get("args", {}) and within(e["ts"], join)}
@@ -86,6 +87,16 @@ def test_the_multipass_waits_and_device_work_lie_in_their_spans(dev,
            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
            and e.get("args", {}).get("correlation") in calls]
     assert ops
+    return line, events, join, calls, ops
+
+
+def test_the_multipass_waits_and_device_work_lie_in_their_spans(dev,
+                                                               tmp_path):
+    line, events, join, calls, ops = traced_join(dev, tmp_path)
+    spans = {name: [e for e in events if e["name"] == name
+                    and covers(join, e)]
+             for name in (*PHASES, "hj.readback")}
+    assert [len(spans[n]) for n in PHASES] == [1, 1, 1, 1]
 
     def phase(op):
         call = calls[op["args"]["correlation"]]
@@ -115,3 +126,51 @@ def test_the_multipass_waits_and_device_work_lie_in_their_spans(dev,
     assert line["passShifts"] == [16, 9] and line["passBits"] == [7, 7]
     assert line["totalOverflows"] == 0 and line["partitionedKeys"] > 0
     assert line["totalMatches"] == 1 << 26
+
+
+# the kernels a pass launches from K2's and K6's library calls
+PASS_KERNELS = ("sort_tiles_kernel", "prefill_kernel", "scatter_tiles_kernel")
+
+
+def test_the_partitions_planning_lies_in_hj_passplan(dev, tmp_path):
+    """Three ``hj.passplan`` spans inside ``hj.partition`` (two passes):
+    every device operation the partition issues after its first K2, but
+    K2's and K6's own, is issued inside one of them, and none of theirs;
+    K2 and K6 (its MAXI32 prefill too) are issued directly inside
+    ``hj.partition``; and no device operation is issued directly inside
+    ``hj.join``."""
+    line, events, join, calls, ops = traced_join(dev, tmp_path)
+    spans = [e for e in events
+             if e["name"].startswith("hj.") and covers(join, e)]
+    (partition,) = [e for e in spans if e["name"] == "hj.partition"]
+    plans = [e for e in spans if e["name"] == "hj.passplan"]
+    assert len(plans) == 3 and all(covers(partition, e) for e in plans)
+
+    def call(op):
+        return calls[op["args"]["correlation"]]
+
+    def where(op):
+        return min((s for s in spans if covers(s, call(op))),
+                   key=lambda s: s["dur"])
+
+    def launched_by_pass(op):
+        return any(k in op["name"] for k in PASS_KERNELS)
+
+    issued = [op for op in ops if covers(partition, call(op))]
+    passes = [op for op in issued if launched_by_pass(op)]
+    names = [op["name"] for op in passes]
+    for kernel in ("sort_tiles_kernel", "scatter_tiles_kernel"):
+        assert sum(kernel in name for name in names) == 2, names
+    assert all(where(op) is partition for op in passes), [
+        (op["name"], where(op)["name"]) for op in passes]
+    first_k2 = min(call(op)["ts"] for op in passes
+                   if "sort_tiles_kernel" in op["name"])
+    planning = [op for op in issued
+                if call(op)["ts"] > first_k2 and not launched_by_pass(op)]
+    assert planning
+    assert all(where(op)["name"] == "hj.passplan" for op in planning), [
+        (op["name"], where(op)["name"]) for op in planning
+        if where(op)["name"] != "hj.passplan"]
+    assert not any(launched_by_pass(op) for op in ops
+                   if where(op)["name"] == "hj.passplan")
+    assert [op["name"] for op in ops if where(op) is join] == []
